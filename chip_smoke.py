@@ -9,17 +9,34 @@ caught:
 1. print the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
 2. build the CUDA pair kernels from summersph_tpu_torch/csrc with nvcc;
-3. on the N = 131,072 Keplerian disc (bench.py's sweep geometry): hold each
-   kernel against its plain PyTorch version after one sort + pair_eval,
-   time both with CUDA events, and time the main path;
-4. the main path at full size: the N = 1,048,576 disc with bench.py's
-   headline config at gravity='none' -- prime, run_steps(20) to warm up,
-   run_steps(20) timed -- with the kernels' launch counters reset just
-   before, then checks (41 launches of each kernel, all health counters
-   zero, check_health, particles lost only to accretion, finite
-   diagnostics), a per-layer breakdown of one step, and each kernel against
-   its plain version at these shapes;
-5. print the kernels' JSON line and, last, {"ok": true, "device": ...}.
+3. on the N = 131,072 Keplerian disc (bench.py's sweep geometry): hold the
+   density and force kernels against their plain PyTorch versions, time
+   both with CUDA events, and time the gravity='none' main path;
+4. the gravity kernels at N = 131,072: the fused force kernel at the
+   grid-256 configuration, the short-range gravity kernel at the grid-128
+   configuration and on a clustered clump (tests/test_grav_overflow.py's
+   recipe), each against its plain version (the gravity sums against the
+   plain version in float64, `hold_exact`); and the rms force error of
+   both TreePM routes against the exact direct sum;
+5. the gravity='none' main path at full size: the N = 1,048,576 disc with
+   bench.py's headline config -- prime, run_steps(20) to warm up,
+   run_steps(20) timed -- with every launch counter reset just before,
+   then checks (41 launches of each SPH kernel, all health counters zero,
+   check_health, particles lost only to accretion, finite diagnostics), a
+   per-layer breakdown of one step, and each kernel against its plain
+   version at these shapes;
+6. the fused TreePM path at full size: N = 1,048,576, bench.py's first pm
+   sweep cell (grav_grid 256, grav_fuse_short, pm_every 8): 41 fused
+   force launches, 7 mesh solves, no short-range kernel launch, the same
+   health checks, a layer breakdown of one solving step, the device busy
+   share, and the fused kernel against its plain version;
+7. the separate TreePM path at full size: grav_grid 128, pm_every 1: 41
+   launches of the short-range kernel and 41 solves, the same checks, a
+   layer breakdown, and the kernel against its plain version;
+8. print the kernels' JSON line (with each kernel's bound: the larger of
+   its input and output bytes over 3.35 TB/s and its FP32 operations on
+   the pairs this run's data needs over 67 TFLOP/s) and, last,
+   {"ok": true, "device": ...}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false.  No JAX is imported.
@@ -32,15 +49,23 @@ import time
 
 STEPS = 20
 RHO_RTOL = 2e-5          # density vs plain version
-FORCE_RTOL = 2e-4        # acc, du, dalpha raw sums vs plain version
+FORCE_RTOL = 2e-4        # acc, du, dalpha and gravity sums vs plain version
 FORCE_ATOL_REL = 1e-5    # atol = this x max|component|: another sum order
-KERNELS = (
-    # (name, wrapper, plain version, TPU kernel it replaces)
-    ("density_fixed_h", "density_sums", "density_sums_plain",
-     "summersph_tpu/ops/pallas_pairs.py:365"),
-    ("force_fixed_h", "force_sums", "force_sums_plain",
-     "summersph_tpu/ops/pallas_pairs.py:604"),
-)
+PEAK_FP32 = 67e12        # H100 SXM FP32 outside the tensor cores, FLOP/s
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
+# FP32 operations per pair inside the support, counted from
+# csrc/sph_pairs.cu (add, multiply, compare, rsqrt, exp and divide once,
+# a fused multiply-add twice); the gravity sums in the fused kernel reuse
+# the pair geometry (11 operations) of the force sums
+OPS_DENSITY, OPS_FORCE, OPS_GRAV, OPS_GEOMETRY = 20, 64, 55, 11
+KERNELS = {
+    # name: (TPU kernel it replaces, bytes per row read and written)
+    "density_fixed_h": ("summersph_tpu/ops/pallas_pairs.py:365", 24 + 4),
+    "force_fixed_h": ("summersph_tpu/ops/pallas_pairs.py:604", 56 + 20),
+    "force_fixed_h_grav": ("summersph_tpu/ops/pallas_pairs.py:657",
+                           56 + 32),
+    "grav_short": ("summersph_tpu/ops/pallas_pairs.py:880", 24 + 12),
+}
 
 
 def require(cond, msg):
@@ -48,26 +73,64 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bench_config(n):
-    """bench.py's config (bench.py:107-121) at gravity='none'."""
+def launch_counts():
+    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+
+    return {"density_fixed_h": cuda_pairs.density_sums.launches,
+            "force_fixed_h": cuda_pairs.force_sums.launches,
+            "force_fixed_h_grav": cuda_pairs.force_sums.fused_launches,
+            "grav_short": cuda_pairs.grav_short_sums.launches,
+            "mesh solves": pm_gravity.pm_long_range.solves}
+
+
+def reset_counts():
+    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+
+    cuda_pairs.density_sums.launches = 0
+    cuda_pairs.force_sums.launches = 0
+    cuda_pairs.force_sums.fused_launches = 0
+    cuda_pairs.grav_short_sums.launches = 0
+    pm_gravity.pm_long_range.solves = 0
+
+
+def bench_config(n, gravity="none", grav_grid=128, pm_every=1):
+    """bench.py's config (bench.py:83-119): window_group 64 without
+    gravity, 32 with it; grav_fuse_short at grav_grid >= 256."""
     from summersph_tpu_torch.config import SimConfig
 
     h0 = 100.0 * (60.0 / n) ** (1.0 / 3.0) / 2.0
     cfg = SimConfig(
-        fixed_h=h0, gravity="none", neighbor_mode="sorted", use_pallas=True,
-        sorted_block=128, window_group=64, pallas_window=256,
-        pallas_fetch_window=768, window_blocks=3, gamma=1.4,
-        bounding_size=1500.0, dt_init=1e-4, dt_min=1e-5, dt_max=1e-3)
+        fixed_h=h0, gravity=gravity, neighbor_mode="sorted", use_pallas=True,
+        sorted_block=128, window_group=64 if gravity == "none" else 32,
+        pallas_window=256, pallas_fetch_window=768, grav_grid=grav_grid,
+        window_blocks=3, grav_window_blocks=8,
+        grav_fuse_short=gravity != "none" and grav_grid >= 256,
+        gamma=1.4, bounding_size=1500.0, dt_init=1e-4, dt_min=1e-5,
+        dt_max=1e-3, pm_every=pm_every if gravity != "none" else 1)
     return cfg, h0
 
 
-def disc(n, device):
+def disc(n, device, **kw):
     from summersph_tpu_torch.models.disc import disc_ic
 
-    cfg, h0 = bench_config(n)
+    cfg, h0 = bench_config(n, **kw)
     state, _ = disc_ic(n=n, r_max=100.0, m_star=5.0, h0=h0,
                        rotation="keplerian", cfg=cfg, seed=0, device=device)
     return state, cfg
+
+
+def clustered(n, device):
+    """tests/test_grav_overflow.py's clump recipe (seeded numpy): 3/4 of
+    the particles in a Gaussian of 1.2 AU, the rest uniform in 100 AU."""
+    import numpy as np
+    from summersph_tpu_torch.state import Particles
+
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+    pos[: 3 * n // 4] = rng.normal(0, 1.2, (3 * n // 4, 3))
+    return Particles.create(pos=pos, vel=np.zeros((n, 3)),
+                            mass=np.full(n, 1e-3), u=np.ones(n), h=0.5,
+                            device=device)
 
 
 def cuda_ms(fn, reps):
@@ -86,70 +149,277 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def compare_kernels(p_sorted, grid, cfg, label):
-    """Each kernel against its plain version on the same sorted state;
-    returns {name: (max_abs_err, kernel ms, plain ms)}."""
+def hold(name, kernel_out, plain_out, label, rtol=FORCE_RTOL,
+         atol_rel=FORCE_ATOL_REL):
+    """Each output of a kernel against its plain version; returns the
+    largest |kernel - plain|."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = 0.0
+    for c, (a, b) in enumerate(zip(kernel_out, plain_out)):
+        require(bool(torch.isfinite(a).all()),
+                f"{name} output {c} not finite ({label})")
+        tol = dict(rtol=rtol, atol=atol_rel * float(b.abs().max()))
+        torch.testing.assert_close(a, b, **tol,
+                                   msg=f"{name} output {c} ({label})")
+        e = float((a - b).abs().max())
+        err = max(err, e)
+        print(f"[{label}] {name} output {c}: max |kernel - plain| {e:.3e} "
+              f"within rtol {tol['rtol']:g} atol {tol['atol']:.3e}",
+              flush=True)
+    return err
+
+
+def hold_exact(name, kernel_out, plain_out, exact_out, label, first=0):
+    """The gravity sums, whose terms f(r/h) - S(r) nearly cancel, lose
+    digits in float32 in the kernel and its plain version alike.  Each is
+    held against the plain version on the same inputs in float64: within
+    rtol 2e-4 and atol = 1e-5 x max|component| + twice the float32 plain
+    version's own largest error.  Returns the largest |kernel - plain|."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = 0.0
+    for c, (a, b, r) in enumerate(zip(kernel_out, plain_out, exact_out),
+                                  start=first):
+        require(bool(torch.isfinite(a).all()),
+                f"{name} output {c} not finite ({label})")
+        floor = float((b.double() - r).abs().max())
+        tol = dict(rtol=FORCE_RTOL,
+                   atol=FORCE_ATOL_REL * float(r.abs().max()) + 2 * floor)
+        torch.testing.assert_close(a.double(), r, **tol,
+                                   msg=f"{name} output {c} ({label})")
+        e = float((a - b).abs().max())
+        err = max(err, e)
+        e64 = float((a.double() - r).abs().max())
+        print(f"[{label}] {name} output {c}: max |kernel - plain| {e:.3e}; "
+              f"against float64: kernel {e64:.3e}, plain {floor:.3e}, "
+              f"within rtol {tol['rtol']:g} atol {tol['atol']:.3e}",
+              flush=True)
+    return err
+
+
+def f64(p):
+    """Particles with every float field in float64."""
+    return p.map(lambda a: a.double() if a.is_floating_point() else a)
+
+
+def compare(name, kernel, plain, label, plain_reps=2, exact=None, **tol):
+    """Hold `kernel()` against `plain()`, then time both; returns
+    (max_abs_err, kernel ms, plain ms).  With `exact` (the plain version
+    in float64), the last outputs, as many as `exact()` gives, are the
+    gravity sums and are held by `hold_exact`."""
+    def flat(out):
+        out = (out,) if not isinstance(out, tuple) else out
+        return [t for o in out for t in ((o,) if not isinstance(o, tuple)
+                                         else o)]
+
+    k, p = flat(kernel()), flat(plain())
+    q = flat(exact()) if exact is not None else []
+    n_sph = len(k) - len(q)
+    err = hold(name, k[:n_sph], p[:n_sph], label, **tol)
+    if q:
+        err = max(err, hold_exact(name, k[n_sph:], p[n_sph:], q, label,
+                                  first=n_sph))
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, plain_reps)
+    print(f"[{label}] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+          f"plain {plain_ms:.4f} ms", flush=True)
+    return err, ms, plain_ms
+
+
+def count_pairs(pos, grid, wg, radius2):
+    """Pairs of distinct particles inside each row's windows and key mask
+    with r^2 < radius2: the pairs whose arithmetic the sums need."""
     import torch
     from summersph_tpu_torch.ops import cuda_pairs
 
-    p_dens, _, _, _ = cuda_pairs.pair_eval(p_sorted, cfg, grid)
-    inputs = {"density_fixed_h": p_sorted, "force_fixed_h": p_dens}
-    out = {}
-    for name, wrapper, plain, _ in KERNELS:
-        p = inputs[name]
-        k = getattr(cuda_pairs, wrapper)(p, cfg, grid)
-        r = getattr(cuda_pairs, plain)(p, cfg, grid)
-        torch.cuda.synchronize()
-        k = (k,) if torch.is_tensor(k) else k
-        r = (r,) if torch.is_tensor(r) else r
-        err = 0.0
-        for c, (a, b) in enumerate(zip(k, r)):
-            require(bool(torch.isfinite(a).all()),
-                    f"{name} output {c} not finite ({label})")
-            if name == "density_fixed_h":
-                tol = dict(rtol=RHO_RTOL, atol=0.0)
-            else:
-                tol = dict(rtol=FORCE_RTOL,
-                           atol=FORCE_ATOL_REL * float(b.abs().max()))
-            torch.testing.assert_close(a, b, **tol,
-                                       msg=f"{name} output {c} ({label})")
-            err = max(err, float((a - b).abs().max()))
-            print(f"[{label}] {name} output {c}: max |kernel - plain| "
-                  f"{float((a - b).abs().max()):.3e} within rtol "
-                  f"{tol['rtol']:g} atol {tol['atol']:.3e}", flush=True)
-        ms = cuda_ms(lambda: getattr(cuda_pairs, wrapper)(p, cfg, grid), 10)
-        plain_ms = cuda_ms(lambda: getattr(cuda_pairs, plain)(p, cfg, grid),
-                           2)
-        out[name] = (err, ms, plain_ms)
-        print(f"[{label}] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms", flush=True)
+    total = torch.zeros((), dtype=torch.int64, device=pos.device)
+    for g0, g1, idx, valid, off in cuda_pairs._candidate_chunks(grid, wg):
+        _, mask, _, _, _, r2 = cuda_pairs._pair_geometry(pos, grid, wg, g0,
+                                                         g1, idx, valid, off)
+        total += torch.sum(mask & (r2 > 0.0) & (r2 < radius2))
+    return int(total)
+
+
+def bound(name, n_rows, groups, ops):
+    """(bound_ms, bound_by): the larger of the bytes the kernel must move
+    over the card's memory rate and its FP32 operations over the FP32
+    peak."""
+    t_bytes = (KERNELS[name][1] * n_rows + 72 * groups) / PEAK_BYTES
+    t_ops = ops / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def sph_kernels(p_sorted, grid, cfg, label):
+    """The density and force kernels against their plain versions on one
+    sorted state; returns {name: (err, ms, plain_ms, bound_ms, by)}."""
+    from summersph_tpu_torch.ops import cuda_pairs
+
+    p_dens = cuda_pairs.pair_eval(p_sorted, cfg, grid)[0]
+    out = {"density_fixed_h": compare(
+        "density_fixed_h",
+        lambda: cuda_pairs.density_sums(p_sorted, cfg, grid),
+        lambda: cuda_pairs.density_sums_plain(p_sorted, cfg, grid), label,
+        rtol=RHO_RTOL, atol_rel=0.0)}
+    out["force_fixed_h"] = compare(
+        "force_fixed_h", lambda: cuda_pairs.force_sums(p_dens, cfg, grid),
+        lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid), label)
+    n_sph = count_pairs(p_sorted.pos, grid, cfg.window_group,
+                        4.0 * cfg.fixed_h ** 2)
+    rows, groups = p_sorted.capacity, grid.starts.shape[0]
+    print(f"[{label}] pairs inside 2h: {n_sph} ({n_sph / rows:.1f} per row)",
+          flush=True)
+    out["density_fixed_h"] += bound("density_fixed_h", rows, groups,
+                                    n_sph * OPS_DENSITY)
+    out["force_fixed_h"] += bound("force_fixed_h", rows, groups,
+                                  n_sph * OPS_FORCE)
     return out
+
+
+def fused_kernel(p_sorted, grid, cfg, label):
+    """The fused force kernel against its plain version at the step's
+    split; returns (err, ms, plain_ms, bound_ms, by)."""
+    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+
+    p_dens = cuda_pairs.pair_eval(p_sorted, cfg, grid)[0]
+    r_s = pm_gravity.pm_geometry(p_sorted, cfg)[2]
+    split = (r_s, cfg.effective_rcut_rs() * r_s)
+    require(float(split[1]) <= float(grid.cell_size),
+            f"r_cut {float(split[1])} > SPH cell {float(grid.cell_size)}")
+    p64, split64 = f64(p_dens), tuple(v.double() for v in split)
+    res = compare(
+        "force_fixed_h_grav",
+        lambda: cuda_pairs.force_sums(p_dens, cfg, grid, split),
+        lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid, split), label,
+        exact=lambda: cuda_pairs.force_sums_plain(p64, cfg, grid,
+                                                  split64)[5])
+    wg = cfg.window_group
+    n_sph = count_pairs(p_sorted.pos, grid, wg, 4.0 * cfg.fixed_h ** 2)
+    n_grav = count_pairs(p_sorted.pos, grid, wg, split[1] ** 2)
+    print(f"[{label}] r_s {float(r_s):.4f} r_cut {float(split[1]):.4f} "
+          f"SPH cell {float(grid.cell_size):.4f}; pairs inside 2h {n_sph}, "
+          f"inside r_cut {n_grav}", flush=True)
+    return res + bound("force_fixed_h_grav", p_sorted.capacity,
+                       grid.starts.shape[0],
+                       n_sph * OPS_FORCE
+                       + n_grav * (OPS_GRAV - OPS_GEOMETRY))
+
+
+def grav_kernel(p, cfg, label, plain_reps=2):
+    """The short-range gravity kernel against its plain version on the
+    gravity sort of `p` at its mesh split; returns (err, ms, plain_ms,
+    bound_ms, by)."""
+    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+
+    r_s = pm_gravity.pm_geometry(p, cfg)[2]
+    pos, m, h, ggrid, _, split = pm_gravity.gravity_sort(p, cfg, r_s)
+    ext = (ggrid.ends - ggrid.starts).sum(dim=1)
+    print(f"[{label}] gravity windows: r_cut {float(split[1]):.4f}, "
+          f"candidates per row mean {float(ext.float().mean()):.1f} max "
+          f"{int(ext.max())}", flush=True)
+    exact = (pos.double(), m.double(), h.double(), ggrid, cfg,
+             tuple(v.double() for v in split))
+    res = compare(
+        "grav_short",
+        lambda: cuda_pairs.grav_short_sums(pos, m, h, ggrid, cfg, split),
+        lambda: cuda_pairs.grav_short_sums_plain(pos, m, h, ggrid, cfg,
+                                                 split),
+        label, plain_reps=plain_reps,
+        exact=lambda: cuda_pairs.grav_short_sums_plain(*exact))
+    n_grav = count_pairs(pos, ggrid, cfg.window_group, split[1] ** 2)
+    print(f"[{label}] pairs inside r_cut: {n_grav} "
+          f"({n_grav / p.capacity:.1f} per row)", flush=True)
+    return res + bound("grav_short", pos.shape[0], ggrid.starts.shape[0],
+                       n_grav * OPS_GRAV)
+
+
+def pm_vs_direct(state, label):
+    """rms and median relative error of the two TreePM routes (separate at
+    grid 128, fused at grid 256) against the exact direct sum, printed:
+    the mesh delivers the unsoftened force beyond r_cut, where the direct
+    sum still softens up to 2h, so the size of the error depends on the
+    mesh and is no pass mark."""
+    import torch
+    from summersph_tpu_torch.ops import cuda_pairs, gravity, pm_gravity
+    from summersph_tpu_torch.ops.sorted_grid import sort_particles
+
+    n = state.particles.capacity
+    cfg128, _ = bench_config(n, gravity="pm", grav_grid=128)
+    cfg256, _ = bench_config(n, gravity="pm", grav_grid=256)
+    p2, grid = sort_particles(state.particles, cfg256)
+    direct = gravity.gas_gravity_direct(p2, cfg256)
+    sep = pm_gravity.gas_gravity_pm(p2, cfg128)[0]
+    r_s = pm_gravity.pm_geometry(p2, cfg256)[2]
+    out = cuda_pairs.pair_eval(p2, cfg256, grid,
+                               (r_s, cfg256.effective_rcut_rs() * r_s))
+    fused = pm_gravity.pm_long_range(p2, cfg256)[0] + out[4]
+    mag = torch.linalg.norm(direct, dim=1)
+    live = p2.alive
+    for route, acc in (("separate, grid 128", sep), ("fused, grid 256",
+                                                     fused)):
+        rel = (torch.linalg.norm(acc - direct, dim=1)
+               / torch.clamp(mag, min=1e-12))[live]
+        rms = float(torch.sqrt(torch.mean(rel ** 2)))
+        require(bool(torch.isfinite(acc).all()), f"{route} not finite")
+        print(f"[{label}] gas_gravity_pm ({route}) vs gas_gravity_direct: "
+              f"rms relative error {rms:.4e}, median "
+              f"{float(torch.median(rel)):.4e}", flush=True)
 
 
 def time_main_path(state, cfg):
     """prime, run_steps(STEPS) warm-up, run_steps(STEPS) timed.  Returns
-    (primed state, warm-up state, final state, particle-steps/s, s/step)."""
+    (warm-up state, final state, particle-steps/s, s/step)."""
     import torch
     from summersph_tpu_torch.integrate import prime, run_steps
 
-    primed = prime(state, cfg)
-    warm = run_steps(primed, cfg, STEPS)
+    warm = run_steps(prime(state, cfg), cfg, STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_steps(warm, cfg, STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rate = int(out.particles.n_alive) * STEPS / wall
-    return primed, warm, out, rate, wall / STEPS
+    return warm, out, rate, wall / STEPS
+
+
+def check_run(state, warm, out, label):
+    """Health counters zero, check_health, particles lost only to
+    accretion, finite diagnostics."""
+    import torch
+    from summersph_tpu_torch import diagnostics
+    from summersph_tpu_torch.integrate import check_health
+
+    n = state.particles.capacity
+    m_p = float(state.particles.mass[0])
+    m_sink0 = float(state.sinks.mass[0])
+    for st, what in ((warm, "warm-up"), (out, "timed")):
+        require(not any(st.stats.tolist()),
+                f"{label} {what} stats not all zero: {st.stats_dict()}")
+    check_health(out, where=label)
+    n_lost = n - int(out.particles.n_alive)
+    accreted = (float(out.sinks.mass[0]) - m_sink0) / m_p
+    require(abs(accreted - round(accreted)) < 1e-6
+            and n_lost == round(accreted),
+            f"{label}: {n_lost} particles lost but {accreted} accreted")
+    d = diagnostics.measure(out)
+    for key, val in d.items():
+        require(bool(torch.isfinite(torch.as_tensor(val)).all()),
+                f"{label}: measure()[{key!r}] not finite")
+    print(f"[{label}] {diagnostics.format_report(d)}; lost {n_lost} "
+          f"particles, all accreted", flush=True)
 
 
 def layer_breakdown(state, cfg):
     """CUDA-event milliseconds of each layer of one step (the body of
-    integrate.step with reuse_forces), on `state`."""
+    integrate.step with reuse_forces, solving the mesh when gravity is
+    on), on `state`."""
     import torch
     from summersph_tpu_torch.integrate import (_count_nonfinite,
                                                _coverage_stats, drift, kick)
-    from summersph_tpu_torch.ops import cuda_pairs, pairs
+    from summersph_tpu_torch.ops import cuda_pairs, pairs, pm_gravity
     from summersph_tpu_torch.ops.eos import eos_update
     from summersph_tpu_torch.ops.gravity import sink_gravity
     from summersph_tpu_torch.ops.sinks import accrete, cull_bounds
@@ -163,38 +433,145 @@ def layer_breakdown(state, cfg):
         ev.record()
         marks.append((name, ev))
 
+    grav = cfg.gravity in pm_gravity.PM_MODES
+    fuse = grav and cfg.grav_fuse_short
     p, s, dt = state.particles, state.sinks, state.dt
     mark("start")
     p, s = drift(*kick(p, s, dt), dt)
-    mark("kick+drift")
+    mark("rest")
     p, grid = sort_particles(p, cfg)
     mark("sort")
+    split = None
+    if grav:
+        origin, cell, r_s = pm_gravity.pm_geometry(p, cfg)
+        split = (r_s, cfg.effective_rcut_rs() * r_s)
+        mark("rest")
     rho_raw = cuda_pairs.density_sums(p, cfg, grid)
     mark("density kernel")
     rho, _ = pairs.finalize_density(rho_raw, torch.zeros_like(rho_raw), p.h,
                                     p.alive, p.mass)
     p = eos_update(p.replace(rho=rho, omega=torch.ones_like(rho)), cfg)
     mark("finalize+EOS")
-    ax, ay, az, du, araw = cuda_pairs.force_sums(p, cfg, grid)
-    mark("force kernel")
+    out = cuda_pairs.force_sums(p, cfg, grid, split if fuse else None)
+    mark("fused force kernel" if fuse else "force kernel")
+    ax, ay, az, du, araw = out[:5]
     acc = torch.where(p.alive[:, None], torch.stack([ax, ay, az], -1), 0.0)
     dalpha = torch.where(p.alive, pairs.alpha_rate(araw, rho, p.alpha, p.cs,
                                                    p.h, cfg), 0.0)
+    mark("rest")
+    if grav:
+        n = cfg.grav_grid
+        m = torch.where(p.alive, p.mass, 0.0)
+        rho_pad = torch.zeros((2 * n,) * 3, dtype=p.pos.dtype,
+                              device=p.pos.device)
+        rho_pad[:n, :n, :n] = pm_gravity._cic_deposit(p.pos, m, origin,
+                                                      cell, n) / cell ** 3
+        mark("CIC deposit")
+        phi_k = (torch.fft.rfftn(rho_pad)
+                 * pm_gravity.grav_tables(cfg, p.pos.dtype, p.pos.device)
+                 * (cell * cell))
+        grads = pm_gravity._fd4_gradient(
+            torch.fft.irfftn(phi_k, s=(2 * n,) * 3), cell)
+        force = torch.stack([g[:n, :n, :n] for g in grads], dim=-1)
+        mark("FFT + gradient")
+        acc_long = pm_gravity._cic_gather(force, p.pos, origin, cell, n)
+        mark("CIC gather")
+        if fuse:
+            acc = acc + acc_long + torch.stack(out[5], -1)
+        else:
+            pos_s, m_s, h_s, ggrid, perm, gsplit = pm_gravity.gravity_sort(
+                p, cfg, r_s)
+            mark("gravity sort")
+            g = cuda_pairs.grav_short_sums(pos_s, m_s, h_s, ggrid, cfg,
+                                           gsplit)
+            mark("short-range kernel")
+            acc_s = torch.empty_like(p.pos)
+            acc_s[perm[:p.capacity]] = torch.stack(g, -1)[:p.capacity]
+            acc = acc + acc_long + acc_s
+        mark("rest")
     acc_gas_sink, acc_sink = sink_gravity(p, s)
+    mark("sink gravity")
     p = p.replace(acc=acc + acc_gas_sink, du=torch.where(p.alive, du, 0.0),
                   dalpha=dalpha)
     p, s = kick(p, s.replace(acc=acc_sink), dt)
-    mark("alpha+sink gravity+kick")
     next_timestep(p, dt, cfg)
-    mark("next_timestep")
     p, s = cull_bounds(*accrete(p, s), cfg)
     _coverage_stats(cfg, grid, torch.zeros((), dtype=torch.int32,
                                            device=p.pos.device),
                     _count_nonfinite(p))
-    mark("accrete+cull+stats")
+    mark("rest")
     torch.cuda.synchronize()
-    return {name: marks[i - 1][1].elapsed_time(ev)
-            for i, (name, ev) in enumerate(marks) if i}
+    layers = {}
+    for i in range(1, len(marks)):
+        name = marks[i][0]
+        layers[name] = (layers.get(name, 0.0)
+                        + marks[i - 1][1].elapsed_time(marks[i][1]))
+    return layers
+
+
+def print_layers(layers, label):
+    total = sum(layers.values())
+    print(f"[{label}] one step by layer (CUDA events, ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in layers.items()) + f"; sum {total:.3f}",
+        flush=True)
+
+
+def device_busy(state, cfg, steps, label):
+    """Device kernel time over wall time for `steps` steps under
+    torch.profiler, and the five kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from summersph_tpu_torch.integrate import run_steps
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps(state, cfg, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    if dev_us <= 0:
+        print(f"[{label}] device busy share: not measured (the profiler "
+              f"saw no device time)", flush=True)
+        return
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"[{label}] profiler, {steps} steps: device {dev_us / 1e3:.3f} ms "
+          f"of {wall * 1e3:.3f} ms wall, busy share {dev_us / 1e6 / wall:.3f}"
+          f"; top kernels (ms per step): " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f}"
+              for e in top), flush=True)
+
+
+def pm_path(n, dev, grav_grid, pm_every, expect, label):
+    """One TreePM path at full size: reset the counts, prime + warm-up +
+    timed steps, read the counts and check them against `expect`; then
+    the health checks, the peak memory, a layer breakdown, the busy
+    share.  Returns (launches, final state, cfg)."""
+    import torch
+
+    state, cfg = disc(n, dev, gravity="pm", grav_grid=grav_grid,
+                      pm_every=pm_every)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()
+    warm, out, rate, step_s = time_main_path(state, cfg)
+    launches = launch_counts()
+    print(f"[{label}] main path: {rate:.6e} particle-steps/s "
+          f"({step_s * 1e3:.3f} ms/step, {STEPS} steps timed) launches "
+          f"{launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s with prime and warm-up",
+          flush=True)
+    for name, count in expect.items():
+        require(launches[name] == count,
+                f"{label}: {name} counted {launches[name]}, expected {count}")
+    check_run(state, warm, out, label)
+    print_layers(layer_breakdown(out, cfg), label)
+    device_busy(out, cfg, 5, label)
+    return launches, out, cfg
 
 
 def main():
@@ -204,11 +581,17 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke run needs a CUDA card")
 
-    from summersph_tpu_torch import diagnostics
-    from summersph_tpu_torch.integrate import check_health
-    from summersph_tpu_torch.ops import cuda_pairs
     from summersph_tpu_torch.ops.sorted_grid import sort_particles
     from summersph_tpu_torch.utils import build
+
+    t_start = time.perf_counter()
+    phase_t = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"== phase {name}: {now - phase_t[0]:.1f} s "
+              f"(total {now - t_start:.1f} s)", flush=True)
+        phase_t[0] = now
 
     # -- phase 1: the card
     smi = subprocess.run(
@@ -224,81 +607,98 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- phase 2: build the kernels from csrc/
-    t0 = time.perf_counter()
+    # -- phase 2: build the kernels from csrc/ (one source, one nvcc)
     lib = build.build("sph_pairs")
-    print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"built {lib.name}", flush=True)
     for line in build.build_log("sph_pairs").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
     dev = torch.device("cuda", 0)
+    phase_done("card + build")
 
-    # -- phase 3: N = 131,072, kernels vs plain and the main path
+    # -- phase 3: N = 131,072, SPH kernels vs plain and the main path
     n_small = 131072
     state, cfg = disc(n_small, dev)
     p2, grid = sort_particles(state.particles, cfg)
-    ext = (grid.ends - grid.starts).sum(dim=1)
-    print(f"[N={n_small}] candidates per row: mean "
-          f"{float(ext.float().mean()):.1f} max {int(ext.max())}",
-          flush=True)
-    compare_kernels(p2, grid, cfg, f"N={n_small}")
-    _, _, out_s, rate_s, step_s = time_main_path(state, cfg)
+    label = f"N={n_small}"
+    sph_kernels(p2, grid, cfg, label)
+    _, out_s, rate_s, step_s = time_main_path(state, cfg)
     require(not any(out_s.stats.tolist()), f"stats {out_s.stats_dict()}")
-    check_health(out_s, where=f"N={n_small}")
-    print(f"[N={n_small}] main path: {rate_s:.6e} particle-steps/s "
+    print(f"[{label}] main path: {rate_s:.6e} particle-steps/s "
           f"({step_s * 1e3:.3f} ms/step, {STEPS} steps timed)", flush=True)
+    phase_done("3 (N=131072, gravity none)")
 
-    # -- phase 4: N = 1,048,576, the main path at full size
+    # -- phase 4: N = 131,072, the gravity kernels vs plain
+    st256, cfg256 = disc(n_small, dev, gravity="pm", grav_grid=256,
+                         pm_every=8)
+    p2, grid = sort_particles(st256.particles, cfg256)
+    fused_kernel(p2, grid, cfg256, f"{label} grid 256")
+    st128, cfg128 = disc(n_small, dev, gravity="pm", grav_grid=128)
+    grav_kernel(st128.particles, cfg128, f"{label} grid 128")
+    grav_kernel(clustered(n_small, dev), cfg128, f"{label} clustered clump",
+                plain_reps=1)
+    pm_vs_direct(st128, label)
+    phase_done("4 (N=131072, gravity kernels)")
+
+    # -- phase 5: N = 1,048,576, gravity='none' at full size
     n = 1048576
+    label = f"N={n}"
     state, cfg = disc(n, dev)
-    m_p = float(state.particles.mass[0])
-    m_sink0 = float(state.sinks.mass[0])
-    cuda_pairs.density_sums.launches = 0
-    cuda_pairs.force_sums.launches = 0
-    primed, warm, out, rate, step_s = time_main_path(state, cfg)
-    launches = {"density_fixed_h": cuda_pairs.density_sums.launches,
-                "force_fixed_h": cuda_pairs.force_sums.launches}
-    print(f"[N={n}] main path: {rate:.6e} particle-steps/s "
+    reset_counts()
+    warm, out, rate, step_s = time_main_path(state, cfg)
+    none_launches = launch_counts()
+    print(f"[{label}] main path: {rate:.6e} particle-steps/s "
           f"({step_s * 1e3:.3f} ms/step, {STEPS} steps timed) "
-          f"launches {launches}", flush=True)
-    for name, count in launches.items():
-        require(count == 1 + 2 * STEPS,
-                f"{name} launched {count} times, expected {1 + 2 * STEPS}")
-    for st, what in ((warm, "warm-up"), (out, "timed")):
-        require(not any(st.stats.tolist()),
-                f"{what} stats not all zero: {st.stats_dict()}")
-    check_health(out, where=f"N={n}")
-    n_lost = n - int(out.particles.n_alive)
-    accreted = (float(out.sinks.mass[0]) - m_sink0) / m_p
-    require(abs(accreted - round(accreted)) < 1e-6
-            and n_lost == round(accreted),
-            f"{n_lost} particles lost but {accreted} accreted")
-    d = diagnostics.measure(out)
-    for key, val in d.items():
-        require(bool(torch.isfinite(torch.as_tensor(val)).all()),
-                f"measure()[{key!r}] not finite")
-    print(f"[N={n}] {diagnostics.format_report(d)}; lost {n_lost} "
-          f"particles, all accreted", flush=True)
-
-    layers = layer_breakdown(out, cfg)
-    total = sum(layers.values())
-    print(f"[N={n}] one step by layer (CUDA events, ms): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in layers.items())
-        + f"; sum {total:.3f}", flush=True)
+          f"launches {none_launches}", flush=True)
+    for name in ("density_fixed_h", "force_fixed_h"):
+        require(none_launches[name] == 1 + 2 * STEPS,
+                f"{name} launched {none_launches[name]} times, expected "
+                f"{1 + 2 * STEPS}")
+    check_run(state, warm, out, label)
+    print_layers(layer_breakdown(out, cfg), label)
     p2, grid = sort_particles(out.particles, cfg)
     ext = (grid.ends - grid.starts).sum(dim=1)
-    print(f"[N={n}] candidates per row: mean {float(ext.float().mean()):.1f}"
+    print(f"[{label}] candidates per row: mean {float(ext.float().mean()):.1f}"
           f" max {int(ext.max())}", flush=True)
-    at_main = compare_kernels(p2, grid, cfg, f"N={n}")
+    results = sph_kernels(p2, grid, cfg, label)
+    phase_done("5 (N=1048576, gravity none)")
 
-    # -- phase 5: results
+    # -- phase 6: the fused TreePM path at full size (pm_every 8)
+    solves = 1 + 2 * len(range(0, STEPS, 8))
+    fused_launches, out, cfg = pm_path(
+        n, dev, 256, 8,
+        {"force_fixed_h_grav": 1 + 2 * STEPS, "density_fixed_h":
+         1 + 2 * STEPS, "force_fixed_h": 0, "grav_short": 0,
+         "mesh solves": solves}, f"{label} pm fused grid 256")
+    p2, grid = sort_particles(out.particles, cfg)
+    results["force_fixed_h_grav"] = fused_kernel(
+        p2, grid, cfg, f"{label} pm fused grid 256")
+    phase_done("6 (N=1048576, fused TreePM)")
+
+    # -- phase 7: the separate TreePM path at full size (pm_every 1)
+    sep_launches, out, cfg = pm_path(
+        n, dev, 128, 1,
+        {"grav_short": 1 + 2 * STEPS, "mesh solves": 1 + 2 * STEPS,
+         "force_fixed_h": 1 + 2 * STEPS, "force_fixed_h_grav": 0},
+        f"{label} pm separate grid 128")
+    results["grav_short"] = grav_kernel(out.particles, cfg,
+                                        f"{label} pm separate grid 128")
+    phase_done("7 (N=1048576, separate TreePM)")
+
+    # -- phase 8: results
+    launches = {"density_fixed_h": none_launches["density_fixed_h"],
+                "force_fixed_h": none_launches["force_fixed_h"],
+                "force_fixed_h_grav": fused_launches["force_fixed_h_grav"],
+                "grav_short": sep_launches["grav_short"]}
+    from summersph_tpu_torch.ops import cuda_pairs
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": cuda_pairs.SOURCE,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": at_main[name][0], "ms": at_main[name][1],
-         "plain_ms": at_main[name][2]}
-        for name, _, _, replaces in KERNELS]}), flush=True)
+         "max_abs_err": results[name][0], "ms": results[name][1],
+         "plain_ms": results[name][2], "bound_ms": results[name][3],
+         "bound_by": results[name][4], "library_ms": None}
+        for name, (replaces, _) in KERNELS.items()]}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,14 @@
 """summersph_tpu_torch: the PyTorch / CUDA port of summersph_tpu.
 
-The first slice runs the fixed-h, gravity='none' Keplerian-disc main path
-on one NVIDIA H100: SFC sort -> hand-written CUDA density and force pair
-kernels (csrc/sph_pairs.cu) -> EOS -> sink gravity -> KDK leapfrog with
-the adaptive global timestep, sink accretion and bounds culling.  On the
-CPU every kernel is replaced by its plain PyTorch version.  The package
-imports torch and numpy, never jax.
+It runs the fixed-h Keplerian-disc path on one NVIDIA H100: SFC sort ->
+hand-written CUDA density and force pair kernels (csrc/sph_pairs.cu) ->
+EOS -> self-gravity (direct, or TreePM: the CIC mesh with torch.fft and
+the short-range CUDA kernel, or its form fused into the force kernel,
+with the far field optionally held for cfg.pm_every steps) -> sink
+gravity -> KDK leapfrog with the adaptive global timestep, sink accretion
+and bounds culling.  Entry points put their state on the card unless the
+caller asks for the CPU; on the CPU every kernel is replaced by its plain
+PyTorch version.  The package imports torch and numpy, never jax.
 """
 
 from .config import SimConfig

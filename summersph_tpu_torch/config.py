@@ -7,10 +7,13 @@ comments there say what each knob does; the notes here say what it does in
 the port.
 
 Knobs that only shape the TPU kernels' memory layout are accepted and have
-no effect: `use_pallas`, `pallas_interpret`, `pallas_exact_windows`,
-`pallas_window`, `pallas_fetch_window`, `window_blocks`, and
+no effect: `pallas_interpret`, `pallas_exact_windows`, `pallas_window`,
+`pallas_fetch_window`, `window_blocks`, `grav_window_blocks`,
+`grav_pallas_window`, `grav_pallas_fetch`, `grav_overflow_items`, and
 `sorted_block` beyond the padding granule.  The CUDA pair kernels walk every
 window group's true candidate range, so no window size can drop a pair.
+`use_pallas` only keeps the JAX package's rule that `grav_fuse_short`
+needs it; `grav_fft='matmul'` names the one `torch.fft` path.
 Configurations the port does not run yet raise `NotImplementedError` at
 the first force evaluation (`integrate.check_supported`).
 """
@@ -64,18 +67,18 @@ class SimConfig:
     sink_create_mass: float = 1.0e-11
     sink_merge_factor: float = 0.0      # > 0 not ported yet
 
-    # --- gravity: only 'none' is ported so far
+    # --- gravity: 'none', 'direct', TreePM ('pm'/'bh'/'treepm')
     gravity: str = "none"
     grav_chunk: int = 1024
     grav_grid: int = 128
     grav_split_rs: float = 1.0
     grav_rcut_rs: Optional[float] = None
-    grav_window_blocks: int = 8
+    grav_window_blocks: int = 8         # no effect
     grav_gradient: str = "fd"
-    grav_fft: str = "matmul"
-    grav_overflow_items: int = 0
-    grav_fuse_short: bool = False       # True not ported yet
-    pm_every: int = 1                   # > 1 not ported yet
+    grav_fft: str = "matmul"            # 'matmul' and 'xla': torch.fft
+    grav_overflow_items: int = 0        # no effect (nothing overflows)
+    grav_fuse_short: bool = False       # short range in the force kernel
+    pm_every: int = 1                   # far field held between solves
 
     # --- neighbour search: only 'sorted' is ported
     neighbor_mode: str = "grid"
@@ -83,13 +86,13 @@ class SimConfig:
     sorted_block: int = 128             # padding granule only
     window_group: int = 32              # rows per CUDA block
     window_blocks: int = 3              # no effect (XLA engine's reach)
-    use_pallas: bool = False            # no effect
+    use_pallas: bool = False            # grav_fuse_short needs it
     pallas_window: int = 256            # no effect
     pallas_fetch_window: int = 768      # no effect
     pallas_interpret: bool = False      # no effect
     pallas_exact_windows: bool = False  # no effect
-    grav_pallas_window: int = 1024
-    grav_pallas_fetch: int = 1408
+    grav_pallas_window: int = 1024      # no effect
+    grav_pallas_fetch: int = 1408       # no effect
 
     # --- h-iteration (variable-h mode, not ported yet)
     h_iter_max: int = 3

@@ -1,9 +1,12 @@
-"""KDK leapfrog on the sorted, single-device, fixed-h, gravity='none' path.
+"""KDK leapfrog on the sorted, single-device, fixed-h path, with sink
+gravity and optional gas self-gravity (direct, or TreePM with the fused
+or separate short range and the held far field).
 
 Counterpart of `summersph_tpu/integrate.py`.  One step:
 
     kick(dt/2) ; drift(dt)
     sort -> density kernel -> EOS -> force kernel   (ops.cuda_pairs)
+    [self-gravity: PM mesh + short-range kernel, or the fused force kernel]
     sink gravity ; kick(dt/2)
     t += dt ; dt hysteresis update
     sink accretion ; bounds cull ; health counters
@@ -13,8 +16,10 @@ evaluation feed the first half-kick, so a step evaluates forces once and
 `prime` evaluates them before the first step; False is the reference's
 literal two-evaluation schedule.
 
-PyTorch runs eagerly, so `run_steps` is a Python loop.  `t`, `dt` and the
-health counters stay on the device; nothing in a step waits for the card.
+PyTorch runs eagerly, so `run_steps` is a Python loop.  `t`, `dt`, the
+held PM split and the health counters stay on the device; nothing in a
+step waits for the card.  The far-field phase of `cfg.pm_every` is a host
+integer (`run_steps` passes step % pm_every, phase 0 first).
 Configurations outside the ported path raise `NotImplementedError`
 (`check_supported`).
 """
@@ -28,7 +33,10 @@ import torch
 
 from .config import SimConfig
 from .ops.cuda_pairs import pair_eval, window_overflow
-from .ops.gravity import sink_gravity
+from .ops.gravity import gas_gravity_direct, sink_gravity
+from .ops.pm_gravity import (PM_MODES, gas_gravity_pm, gas_gravity_pm_held,
+                             pm_geometry, pm_long_range_held,
+                             recompute_far_field)
 from .ops.sinks import accrete, cull_bounds
 from .ops.sorted_grid import sort_particles
 from .ops.timestep import next_timestep
@@ -39,16 +47,10 @@ def check_supported(cfg: SimConfig, axis_name: Optional[str] = None):
     """Raise NotImplementedError for a configuration the port does not run
     yet (ROADMAP.md lists the later slices)."""
     problems = []
-    if cfg.gravity != "none":
-        problems.append(f"gravity={cfg.gravity!r} (only 'none')")
     if cfg.fixed_h is None:
         problems.append("variable h (fixed_h=None)")
     if cfg.dt_bins > 1:
         problems.append(f"block timesteps (dt_bins={cfg.dt_bins})")
-    if cfg.pm_every > 1:
-        problems.append(f"held PM force (pm_every={cfg.pm_every})")
-    if cfg.grav_fuse_short:
-        problems.append("grav_fuse_short")
     if cfg.neighbor_mode != "sorted":
         problems.append(f"neighbor_mode={cfg.neighbor_mode!r} "
                         f"(only 'sorted')")
@@ -62,21 +64,90 @@ def check_supported(cfg: SimConfig, axis_name: Optional[str] = None):
 
 
 def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
-               axis_name: Optional[str] = None):
-    """Sort -> density -> EOS -> SPH forces -> sink gravity.
+               axis_name: Optional[str] = None, pm=None):
+    """Sort -> density -> EOS -> SPH forces -> self-gravity -> sink gravity.
 
     Returns (particles with rho/P/cs/omega/acc/du/dalpha filled, sinks with
-    acc, aux = (grid, grav_overflow)); grav_overflow is 0 without gravity.
-    The returned particles are in sorted order and may be padded beyond the
-    caller's capacity; `step` and `prime` slice back.
+    acc, aux = (grid, grav_overflow, pm_r_s)).  grav_overflow is 0 except
+    on a fused step whose r_cut exceeds the SPH cell; pm_r_s is the split
+    the (possibly held) far field was built with when cfg.pm_every > 1,
+    else None.  `pm` = (pm_phase, r_s_held, held_valid) drives the
+    far-field subcycle (`pm_gravity.recompute_far_field`); None recomputes.
+    The returned particles are in sorted order and may be padded beyond
+    the caller's capacity; `step` and `prime` slice back.
     """
+    if cfg.pm_every > 1 and (cfg.neighbor_mode != "sorted"
+                             or (axis_name is not None
+                                 and cfg.decomp == "slab")):
+        raise ValueError(
+            "cfg.pm_every > 1 (held long-range PM force) is implemented "
+            "for neighbor_mode='sorted' without slab decomposition")
+    if cfg.grav_fuse_short and (cfg.neighbor_mode != "sorted"
+                                or not cfg.use_pallas
+                                or axis_name is not None):
+        raise ValueError(
+            "cfg.grav_fuse_short (short-range gravity fused into the SPH "
+            "force kernel) is implemented for the single-device sorted "
+            "engine with use_pallas=True")
     check_supported(cfg, axis_name)
-    p2, grid = sort_particles(p, cfg, h_pad=1.0)
-    p2, acc, du, dalpha = pair_eval(p2, cfg, grid)
+    return _force_eval_sorted(p, s, cfg, pm)
+
+
+def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
+    """force_eval on the sorted window engine.  Self-gravity takes one of
+    four branches: direct; TreePM with the short range fused into the
+    force kernel; TreePM with the separate short-range kernel; either
+    TreePM form with the far field held between solves (cfg.pm_every)."""
+    p2, sgrid = sort_particles(p, cfg, h_pad=1.0)
+    pm_grav = cfg.gravity in PM_MODES
+    fuse = cfg.grav_fuse_short and pm_grav
+    phase = r_s_held = None
+    held_valid = False
+    if pm_grav and cfg.pm_every > 1 and pm is not None:
+        phase, r_s_held, held_valid = pm
+
+    # The fused force kernel needs the split before the long-range solve:
+    # pm_geometry gives the value the solve will use; on a held step the
+    # complement must match the held split instead.
+    grav_split = None
+    if fuse:
+        if recompute_far_field(phase, r_s_held, held_valid):
+            r_s_use = pm_geometry(p2, cfg)[2]
+        else:
+            r_s_use = r_s_held.to(p2.pos.dtype)
+        grav_split = (r_s_use, cfg.effective_rcut_rs() * r_s_use)
+
+    out = pair_eval(p2, cfg, sgrid, grav_split)
+    p2, acc, du, dalpha = out[:4]
+
+    grav_over = torch.zeros((), dtype=torch.int32, device=p2.pos.device)
+    pm_r_s = None
+    if cfg.gravity == "direct":
+        acc = acc + gas_gravity_direct(p2, cfg)
+    elif fuse:
+        acc_long, r_s_out = pm_long_range_held(p2, cfg, phase, r_s_held,
+                                               held_valid)
+        if cfg.pm_every > 1:
+            p2 = p2.replace(acc_ext=acc_long)
+            pm_r_s = r_s_out
+        acc = acc + acc_long + out[4]
+        # the fused sums ride the SPH windows, which bound every gravity
+        # pair only while r_cut <= the sort cell; a step that breaks this
+        # reports every live row, loud, never silent
+        grav_over = torch.where(grav_split[1] <= sgrid.cell_size, 0,
+                                torch.sum(p2.alive)).to(torch.int32)
+    elif pm_grav:
+        if cfg.pm_every > 1:
+            acc_pm, grav_over, acc_long, pm_r_s = gas_gravity_pm_held(
+                p2, cfg, phase, r_s_held, held_valid)
+            p2 = p2.replace(acc_ext=acc_long)
+        else:
+            acc_pm, grav_over = gas_gravity_pm(p2, cfg)
+        acc = acc + acc_pm
+
     acc_gas_sink, acc_sink = sink_gravity(p2, s)
     p2 = p2.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
-    grav_over = torch.zeros((), dtype=torch.int32, device=p2.pos.device)
-    return p2, s.replace(acc=acc_sink), (grid, grav_over)
+    return p2, s.replace(acc=acc_sink), (sgrid, grav_over, pm_r_s)
 
 
 def kick(p: Particles, s: Sinks, dt):
@@ -127,24 +198,38 @@ def _count_nonfinite(p: Particles) -> torch.Tensor:
     return torch.sum(p.alive & ~ok).to(torch.int32)
 
 
-def step(state: SimState, cfg: SimConfig,
-         axis_name: Optional[str] = None) -> SimState:
+def step(state: SimState, cfg: SimConfig, axis_name: Optional[str] = None,
+         pm_phase: Optional[int] = None) -> SimState:
     """One full KDK step.  With `cfg.reuse_forces` it needs primed rates
-    (see `prime`)."""
+    (see `prime`).  `pm_phase` (cfg.pm_every > 1): this step's host-side
+    position in the far-field subcycle -- None or 0 solves the mesh,
+    nonzero reuses the held force, after one device read of the held
+    split (`run_steps` knows the held force is valid and skips it)."""
+    return _step(state, cfg, axis_name, pm_phase, held_valid=False)
+
+
+def _step(state: SimState, cfg: SimConfig, axis_name: Optional[str],
+          pm_phase: Optional[int], held_valid: bool) -> SimState:
     check_supported(cfg, axis_name)
     p, s, dt = state.particles, state.sinks, state.dt
     cap0 = p.capacity
+    pm = None
+    if cfg.pm_every > 1 and pm_phase is not None \
+            and state.pm_r_s is not None:
+        pm = (pm_phase, state.pm_r_s, held_valid)
 
     if cfg.reuse_forces:
         p, s = kick(p, s, dt)
         p, s = drift(p, s, dt)
-        p, s, (grid, grav_over) = force_eval(p, s, cfg)
+        p, s, (grid, grav_over, pm_r_s) = force_eval(p, s, cfg, axis_name,
+                                                     pm=pm)
         p, s = kick(p, s, dt)
     else:
-        p, s, _ = force_eval(p, s, cfg)
+        p, s, _ = force_eval(p, s, cfg, axis_name, pm=pm)
         p, s = kick(p, s, dt)
         p, s = drift(p, s, dt)
-        p, s, (grid, grav_over) = force_eval(p, s, cfg)
+        p, s, (grid, grav_over, pm_r_s) = force_eval(p, s, cfg, axis_name,
+                                                     pm=pm)
         p, s = kick(p, s, dt)
 
     t = state.t + dt
@@ -156,25 +241,40 @@ def step(state: SimState, cfg: SimConfig,
     stats = _coverage_stats(cfg, grid, grav_over, _count_nonfinite(p))
     if p.capacity != cap0:  # drop the sort's dead pad slots
         p = p.map(lambda a: a[:cap0])
-    return state.replace(particles=p, sinks=s, t=t, dt=dt, stats=stats)
+    out = state.replace(particles=p, sinks=s, t=t, dt=dt, stats=stats)
+    if pm_r_s is not None:  # carry the held PM split (cfg.pm_every)
+        out = out.replace(pm_r_s=pm_r_s)
+    return out
 
 
 def init_carries(state: SimState, cfg: SimConfig) -> SimState:
-    """Attach or drop the Kahan carry u_c so the state matches
-    cfg.kahan_u, and drop the held-PM carries (acc_ext, pm_r_s), which
-    only PM gravity uses.  Idempotent."""
+    """Attach or drop the optional carried fields so the state matches the
+    config: the Kahan carry u_c (cfg.kahan_u) and the held PM force acc_ext
+    with its split pm_r_s (cfg.pm_every > 1 or dt_bins > 1 with PM
+    gravity; pm_r_s starts at 0, "no valid held force", so the first step
+    solves).  Idempotent."""
     p = state.particles
     if cfg.kahan_u and p.u_c is None:
         p = p.replace(u_c=torch.zeros_like(p.u))
     if not cfg.kahan_u and p.u_c is not None:
         p = p.replace(u_c=None)
-    return state.replace(particles=p.replace(acc_ext=None), pm_r_s=None)
+    pm_on = ((cfg.pm_every > 1 or cfg.dt_bins > 1)
+             and cfg.gravity in PM_MODES)
+    pm_r_s = state.pm_r_s
+    if pm_on and p.acc_ext is None:
+        p = p.replace(acc_ext=torch.zeros_like(p.pos))
+    if pm_on and pm_r_s is None:
+        pm_r_s = torch.zeros((), dtype=p.pos.dtype, device=p.pos.device)
+    if not pm_on:
+        p, pm_r_s = p.replace(acc_ext=None), None
+    return state.replace(particles=p, pm_r_s=pm_r_s)
 
 
 def prime(state: SimState, cfg: SimConfig) -> SimState:
     """Evaluate forces at the current positions (acc/du/dalpha and
-    rho/P/cs/omega), as the carried-rate KDK needs before its first step.
-    The particle order comes back permuted (identity in pid)."""
+    rho/P/cs/omega, and with cfg.pm_every > 1 a fresh acc_ext), as the
+    carried-rate KDK needs before its first step.  The particle order
+    comes back permuted (identity in pid)."""
     state = init_carries(state, cfg)
     cap0 = state.particles.capacity
     p, s, _ = force_eval(state.particles, state.sinks, cfg)
@@ -184,13 +284,16 @@ def prime(state: SimState, cfg: SimConfig) -> SimState:
 
 
 def run_steps(state: SimState, cfg: SimConfig, n_steps: int) -> SimState:
-    """Advance exactly n_steps.  The returned `stats` is the running
-    maximum of the per-step counters over these steps, so one bad step
-    cannot hide."""
+    """Advance exactly n_steps.  The far-field phase is step % pm_every,
+    pinned to this call: its first step solves the mesh, so a resumed state
+    never starts from a stale held force, and the later steps know their
+    held force is valid.  The returned `stats` is the running maximum of
+    the per-step counters over these steps, so one bad step cannot hide."""
     state = init_carries(state, cfg)
     state = state.replace(stats=torch.zeros_like(state.stats))
-    for _ in range(n_steps):
-        out = step(state, cfg)
+    every = max(cfg.pm_every, 1)
+    for i in range(n_steps):
+        out = _step(state, cfg, None, i % every, held_valid=i > 0)
         state = out.replace(stats=torch.maximum(out.stats, state.stats))
     return state
 

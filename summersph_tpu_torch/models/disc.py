@@ -37,10 +37,11 @@ def disc_ic(
     capacity: int | None = None,
     sink_capacity: int | None = None,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
 ):
     """A (rotating) sphere or disc of gas with an optional central sink of
-    mass m_star.  Returns (SimState, SimConfig), the state on `device`."""
+    mass m_star.  Returns (SimState, SimConfig), the state on `device`
+    (the card unless the caller asks for another)."""
     cfg = cfg or SimConfig(
         fixed_h=h0, gravity="none", gamma=1.4,
         bounding_size=max(15.0 * r_max, 1500.0),

@@ -1,12 +1,16 @@
-"""SPH pair passes on the sorted windows: CUDA kernels and their plain
+"""Pair passes on the sorted windows: CUDA kernels and their plain
 PyTorch versions.  Counterpart of `summersph_tpu/ops/pallas_pairs.py`.
 
-`density_sums` and `force_sums` dispatch by device: a tensor on the CPU
-takes the plain version (`density_sums_plain`, `force_sums_plain`), a
-tensor on a CUDA card launches the hand-written kernel
-(`csrc/sph_pairs.cu`: `density_fixed_h`, `force_fixed_h`) or raises.
-There is no fallback from the kernel to the plain version.  Each wrapper
-counts its kernel launches in a plain integer attribute `launches`.
+`density_sums`, `force_sums` and `grav_short_sums` dispatch by device: a
+tensor on the CPU takes the plain version (`density_sums_plain`,
+`force_sums_plain`, `grav_short_sums_plain`), a tensor on a CUDA card
+launches the hand-written kernel (`csrc/sph_pairs.cu`: `density_fixed_h`,
+`force_fixed_h`, `force_fixed_h_grav` with `grav_split`, `grav_short`) or
+raises.  There is no fallback from a kernel to its plain version.  Each
+wrapper counts its kernel launches in a plain integer attribute:
+`density_sums.launches`, `force_sums.launches` (`force_fixed_h`),
+`force_sums.fused_launches` (`force_fixed_h_grav`) and
+`grav_short_sums.launches`.
 
 Both versions compute the same sums over the same ranges: for every
 window group of `cfg.window_group` sorted rows and each of the 9 plane
@@ -17,8 +21,10 @@ rotations, double buffering) has no counterpart: it exists for Mosaic, and
 walking the true ranges computes what it computes.  Because nothing is
 capped, `window_overflow` is 0.
 
-Fixed h only (the main path); the kernels take float32 only, as the TPU
-kernels do.
+The gravity split (r_s, r_cut) of a step is a pair of 0-d tensors; the
+kernels read it from a two-float device buffer, so no wrapper waits for
+the card.  Fixed h only; the kernels take float32 only, as the TPU kernels
+do.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 from ..config import SimConfig
 from ..state import Particles
 from ..utils import build
-from ..utils.units import PI
+from ..utils.units import G, PI
 from . import pairs
 from .eos import eos_update
 from .kernels import dw_shape, w_shape
@@ -59,6 +65,10 @@ def _library() -> ctypes.CDLL:
     lib.density_fixed_h.restype = i32
     lib.force_fixed_h.argtypes = [ptr] * 21 + [i32, i32, f32, f32, ptr]
     lib.force_fixed_h.restype = i32
+    lib.force_fixed_h_grav.argtypes = [ptr] * 25 + [i32, i32, f32, f32, ptr]
+    lib.force_fixed_h_grav.restype = i32
+    lib.grav_short.argtypes = [ptr] * 12 + [i32, i32, ptr]
+    lib.grav_short.restype = i32
     return lib
 
 
@@ -100,8 +110,14 @@ def _soa(p: Particles):
             torch.where(p.alive, p.mass, 0.0).contiguous())
 
 
-def _groups(p: Particles, cfg: SimConfig, grid: SortedGrid) -> int:
-    n, wg = p.capacity, cfg.window_group
+def _split_buffer(grav_split, device) -> torch.Tensor:
+    """The float32 device buffer {r_s, r_cut} the gravity kernels read."""
+    return torch.stack([torch.as_tensor(v, device=device)
+                        for v in grav_split]).to(torch.float32).contiguous()
+
+
+def _groups(n: int, cfg: SimConfig, grid: SortedGrid) -> int:
+    wg = cfg.window_group
     if n % wg or grid.starts.shape[0] != n // wg:
         raise ValueError(f"{n} rows do not tile into window groups of {wg} "
                          f"matching grid.starts {tuple(grid.starts.shape)}")
@@ -119,7 +135,7 @@ def density_sums(p: Particles, cfg: SimConfig,
     if p.pos.device.type == "cpu":
         return density_sums_plain(p, cfg, grid)
     n = p.capacity
-    groups = _groups(p, cfg, grid)
+    groups = _groups(n, cfg, grid)
     pos, m = _soa(p)
     h = p.h.contiguous()
     _check_cuda_inputs(n, groups,
@@ -164,9 +180,10 @@ def _candidate_chunks(grid: SortedGrid, wg: int):
         yield g0, g1, torch.where(valid, idx, 0), valid, offs[o]
 
 
-def _pair_geometry(p: Particles, grid: SortedGrid, wg: int, g0, g1, idx,
-                   valid, off):
-    """(rows slice, key mask [Gc, wg, C], dx, dy, dz, r2) of one chunk."""
+def _pair_geometry(pos: torch.Tensor, grid: SortedGrid, wg: int, g0, g1,
+                   idx, valid, off):
+    """(rows slice, key mask [Gc, wg, C], dx, dy, dz, r2) of one chunk of
+    the sorted positions `pos` [N, 3]."""
     gc = g1 - g0
     rows = slice(g0 * wg, g1 * wg)
     ki = grid.key[rows].reshape(gc, wg, 1)
@@ -174,7 +191,7 @@ def _pair_geometry(p: Particles, grid: SortedGrid, wg: int, g0, g1, idx,
     offc = off[:, None, :]
     mask = (valid[:, None, :] & (kj >= ki + offc - 1)
             & (kj <= ki + offc + 1))
-    d = [p.pos[rows, c].reshape(gc, wg, 1) - p.pos[idx, c][:, None, :]
+    d = [pos[rows, c].reshape(gc, wg, 1) - pos[idx, c][:, None, :]
          for c in range(3)]
     r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
     return rows, mask, d[0], d[1], d[2], r2
@@ -187,12 +204,12 @@ def density_sums_plain(p: Particles, cfg: SimConfig,
     exclusion) over the same ranges, in chunks of window groups."""
     _require_fixed_h(cfg)
     wg = cfg.window_group
-    _groups(p, cfg, grid)
+    _groups(p.capacity, cfg, grid)
     m_all = torch.where(p.alive, p.mass, 0.0)
     out = torch.empty_like(p.h)
     for g0, g1, idx, valid, off in _candidate_chunks(grid, wg):
-        rows, mask, _, _, _, r2 = _pair_geometry(p, grid, wg, g0, g1, idx,
-                                                 valid, off)
+        rows, mask, _, _, _, r2 = _pair_geometry(p.pos, grid, wg, g0, g1,
+                                                 idx, valid, off)
         inv_hi = 1.0 / p.h[rows].reshape(g1 - g0, wg, 1)
         r = r2 * torch.rsqrt(torch.clamp(r2, min=1.0e-12))
         w = w_shape(r * inv_hi)
@@ -205,16 +222,21 @@ def density_sums_plain(p: Particles, cfg: SimConfig,
 
 # ----------------------------------------------------------------- force
 
-def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid):
+def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
+               grav_split=None):
     """(ax, ay, az, du, alpha_raw), each [N]: pressure + Monaghan
     viscosity with one dW (fixed h).  `p` must carry rho/P/omega/cs from
-    the density pass.  CPU: the plain version; CUDA: the `force_fixed_h`
-    kernel."""
+    the density pass.  With `grav_split` = (r_s, r_cut) also the
+    short-range gravity sums over the same windows, as a last element
+    (gx, gy, gz) (the fused form, `pallas_force_sums` with fuse_grav; the
+    caller checks that r_cut fits the SPH cell).  CPU: the plain version;
+    CUDA: the `force_fixed_h` kernel, or `force_fixed_h_grav` with
+    `grav_split`."""
     _require_fixed_h(cfg)
     if p.pos.device.type == "cpu":
-        return force_sums_plain(p, cfg, grid)
+        return force_sums_plain(p, cfg, grid, grav_split)
     n = p.capacity
-    groups = _groups(p, cfg, grid)
+    groups = _groups(n, cfg, grid)
     pos, m = _soa(p)
     vel = p.vel.t().contiguous()
     fields = {"x": pos[0], "y": pos[1], "z": pos[2], "vx": vel[0],
@@ -223,41 +245,52 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid):
               "omega": p.omega.contiguous(), "cs": p.cs.contiguous(),
               "alpha": p.alpha.contiguous()}
     _check_cuda_inputs(n, groups, fields, {"key": grid.key}, grid)
-    outs = torch.empty((5, n), dtype=torch.float32, device=p.pos.device)
+    nc = 5 if grav_split is None else 8
+    outs = torch.empty((nc, n), dtype=torch.float32, device=p.pos.device)
     f = fields
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
-    _launch(_library().force_fixed_h,
-            f["x"].data_ptr(), f["y"].data_ptr(), f["z"].data_ptr(),
+    args = (f["x"].data_ptr(), f["y"].data_ptr(), f["z"].data_ptr(),
             f["vx"].data_ptr(), f["vy"].data_ptr(), f["vz"].data_ptr(),
             f["m"].data_ptr(), f["h"].data_ptr(), grid.key.data_ptr(),
             f["pressure"].data_ptr(), f["rho"].data_ptr(),
             f["omega"].data_ptr(), f["cs"].data_ptr(), f["alpha"].data_ptr(),
             grid.starts.data_ptr(), grid.ends.data_ptr(),
-            *(outs[c].data_ptr() for c in range(5)),
-            n, cfg.window_group, cfg.av_eps, cfg.beta_factor, stream)
-    force_sums.launches += 1
-    return tuple(outs)
+            *(outs[c].data_ptr() for c in range(5)))
+    tail = (n, cfg.window_group, cfg.av_eps, cfg.beta_factor, stream)
+    if grav_split is None:
+        _launch(_library().force_fixed_h, *args, *tail)
+        force_sums.launches += 1
+        return tuple(outs)
+    split = _split_buffer(grav_split, p.pos.device)
+    _launch(_library().force_fixed_h_grav, *args, split.data_ptr(),
+            *(outs[c].data_ptr() for c in range(5, 8)), *tail)
+    force_sums.fused_launches += 1
+    return tuple(outs[:5]) + (tuple(outs[5:]),)
 
 
 force_sums.launches = 0
+force_sums.fused_launches = 0
 
 
-def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid):
-    """Plain PyTorch version of `force_fixed_h`, on any device and dtype:
-    the Pallas fixed-h algebra (one dW, the 1e-30 guards, the rsqrt clamp,
-    no explicit r > 0 guard) over the same ranges, in chunks."""
+def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
+                     grav_split=None):
+    """Plain PyTorch version of `force_fixed_h` (and, with `grav_split`,
+    of `force_fixed_h_grav`), on any device and dtype: the Pallas fixed-h
+    algebra (one dW, the 1e-30 guards, the rsqrt clamp, no explicit r > 0
+    guard) over the same ranges, in chunks."""
     _require_fixed_h(cfg)
     wg = cfg.window_group
-    _groups(p, cfg, grid)
+    _groups(p.capacity, cfg, grid)
     m_all = torch.where(p.alive, p.mass, 0.0)
     pterm_all = p.pressure / torch.clamp(p.omega * p.rho * p.rho,
                                          min=1.0e-30)
-    outs = torch.empty((5, p.capacity), dtype=p.pos.dtype,
+    nc = 5 if grav_split is None else 8
+    outs = torch.empty((nc, p.capacity), dtype=p.pos.dtype,
                        device=p.pos.device)
     for g0, g1, idx, valid, off in _candidate_chunks(grid, wg):
         gc = g1 - g0
-        rows, mask, dxx, dxy, dxz, r2 = _pair_geometry(p, grid, wg, g0, g1,
-                                                       idx, valid, off)
+        rows, mask, dxx, dxy, dxz, r2 = _pair_geometry(p.pos, grid, wg, g0,
+                                                       g1, idx, valid, off)
 
         def ri(a):
             return a[rows].reshape(gc, wg, 1)
@@ -285,29 +318,109 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid):
         m = torch.where(mask, m_all[idx][:, None, :], 0.0)
         coef = -m * ((pterm_i + cj(pterm_all) + visc) * dw) * inv_r
         vdotgradw = vdotr * inv_r * dw
-        sums = (coef * dxx, coef * dxy, coef * dxz,
-                m * vdotgradw * (pterm_i + 0.5 * visc), m * vdotgradw)
+        sums = [coef * dxx, coef * dxy, coef * dxz,
+                m * vdotgradw * (pterm_i + 0.5 * visc), m * vdotgradw]
+        if grav_split is not None:
+            gcoef = _grav_coef(r2, hi, m, mask, grav_split)
+            sums += [gcoef * dxx, gcoef * dxy, gcoef * dxz]
         for c, s in enumerate(sums):
             outs[c, rows] = torch.sum(s, dim=-1).reshape(-1)
+    if grav_split is None:
+        return tuple(outs)
+    return tuple(outs[:5]) + (tuple(outs[5:]),)
+
+
+# ----------------------------------------------------- short-range gravity
+
+def _grav_coef(r2, h_i, m, mask, grav_split):
+    """-G m_j [f(r / h_i) - S(r)] / r^3 on the pairs with mask, 0 < r and
+    r < r_cut, else 0: the Pallas kernels' short-range gravity algebra
+    (rsqrt(max(r^2, 1e-12)), `erf_approx`, receiver-side softening)."""
+    from .pm_gravity import _short_factor
+
+    r_s, r_cut = grav_split
+    inv_r = torch.rsqrt(torch.clamp(r2, min=1.0e-12))
+    gshort = _short_factor(r2 * inv_r, h_i, r_s)
+    mg = torch.where(mask & (r2 > 0.0) & (r2 < r_cut * r_cut), m, 0.0)
+    return (-G) * mg * gshort * (inv_r * inv_r * inv_r)
+
+
+def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
+                    grid: SortedGrid, cfg: SimConfig, grav_split):
+    """(gx, gy, gz), each [N]: the TreePM short-range gravity sums
+    sum_j -G m_j [f(r_ij / h_i) - S(r_ij)] r_ij / r_ij^3 over 0 < r < r_cut
+    on the gravity sort -- `pos` [N, 3], the masked mass `m` and `h` in
+    the sorted order of `grid`, whose cells are r_cut wide
+    (`pm_gravity.pm_short_range`).  Counterpart of
+    `pallas_grav_short_sums`.  CPU: the plain version; CUDA: the
+    `grav_short` kernel."""
+    if pos.device.type == "cpu":
+        return grav_short_sums_plain(pos, m, h, grid, cfg, grav_split)
+    n = pos.shape[0]
+    groups = _groups(n, cfg, grid)
+    xyz = pos.t().contiguous()
+    m, h = m.contiguous(), h.contiguous()
+    _check_cuda_inputs(n, groups, {"x": xyz[0], "y": xyz[1], "z": xyz[2],
+                                   "m": m, "h": h}, {"key": grid.key}, grid)
+    split = _split_buffer(grav_split, pos.device)
+    outs = torch.empty((3, n), dtype=torch.float32, device=pos.device)
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    _launch(_library().grav_short,
+            xyz[0].data_ptr(), xyz[1].data_ptr(), xyz[2].data_ptr(),
+            m.data_ptr(), h.data_ptr(), grid.key.data_ptr(),
+            grid.starts.data_ptr(), grid.ends.data_ptr(), split.data_ptr(),
+            *(outs[c].data_ptr() for c in range(3)),
+            n, cfg.window_group, stream)
+    grav_short_sums.launches += 1
+    return tuple(outs)
+
+
+grav_short_sums.launches = 0
+
+
+def grav_short_sums_plain(pos: torch.Tensor, m: torch.Tensor,
+                          h: torch.Tensor, grid: SortedGrid, cfg: SimConfig,
+                          grav_split):
+    """Plain PyTorch version of `grav_short`, on any device and dtype: the
+    same sums over the same ranges, in chunks of window groups."""
+    wg = cfg.window_group
+    _groups(pos.shape[0], cfg, grid)
+    outs = torch.empty((3, pos.shape[0]), dtype=pos.dtype,
+                       device=pos.device)
+    for g0, g1, idx, valid, off in _candidate_chunks(grid, wg):
+        rows, mask, dxx, dxy, dxz, r2 = _pair_geometry(pos, grid, wg, g0,
+                                                       g1, idx, valid, off)
+        gcoef = _grav_coef(r2, h[rows].reshape(g1 - g0, wg, 1),
+                           m[idx][:, None, :], mask, grav_split)
+        for c, d in enumerate((dxx, dxy, dxz)):
+            outs[c, rows] = torch.sum(gcoef * d, dim=-1).reshape(-1)
     return tuple(outs)
 
 
 # ------------------------------------------------------------ pair passes
 
-def pair_eval(p: Particles, cfg: SimConfig, grid: SortedGrid):
+def pair_eval(p: Particles, cfg: SimConfig, grid: SortedGrid,
+              grav_split=None):
     """Density -> EOS -> forces on the sorted particles.  Counterpart of
     `pallas_pair_eval`.  Returns (p with rho/omega/pressure/cs, acc [N, 3],
-    du, dalpha), the rates zero on dead rows."""
+    du, dalpha[, acc_grav [N, 3]]), the rates zero on dead rows; the last
+    only with `grav_split` = (r_s, r_cut): the fused short-range gravity
+    acceleration (cfg.grav_fuse_short)."""
     rho_raw = density_sums(p, cfg, grid)
     rho, _ = pairs.finalize_density(rho_raw, torch.zeros_like(rho_raw), p.h,
                                     p.alive, p.mass)
     p = eos_update(p.replace(rho=rho, omega=torch.ones_like(rho)), cfg)
-    ax, ay, az, du, araw = force_sums(p, cfg, grid)
+    out = force_sums(p, cfg, grid, grav_split)
+    ax, ay, az, du, araw = out[:5]
     acc = torch.stack([ax, ay, az], dim=-1)
     dalpha = pairs.alpha_rate(araw, rho, p.alpha, p.cs, p.h, cfg)
     alive = p.alive
-    return (p, torch.where(alive[:, None], acc, 0.0),
-            torch.where(alive, du, 0.0), torch.where(alive, dalpha, 0.0))
+    res = (p, torch.where(alive[:, None], acc, 0.0),
+           torch.where(alive, du, 0.0), torch.where(alive, dalpha, 0.0))
+    if grav_split is not None:
+        res += (torch.where(alive[:, None], torch.stack(out[5], dim=-1),
+                            0.0),)
+    return res
 
 
 def window_overflow(grid: SortedGrid, cfg: SimConfig) -> torch.Tensor:
@@ -318,4 +431,5 @@ def window_overflow(grid: SortedGrid, cfg: SimConfig) -> torch.Tensor:
 
 
 __all__ = ["density_sums", "density_sums_plain", "force_sums",
-           "force_sums_plain", "pair_eval", "window_overflow", "SOURCE"]
+           "force_sums_plain", "grav_short_sums", "grav_short_sums_plain",
+           "pair_eval", "window_overflow", "SOURCE"]

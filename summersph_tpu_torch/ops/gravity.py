@@ -1,7 +1,10 @@
-"""Sink gravity: direct, unsoftened gas<->sink and sink<->sink pulls.
+"""Softened gas-gas gravity (exact all pairs) and direct sink gravity.
 
-Counterpart of `sink_gravity` in `summersph_tpu/ops/gravity.py`.  Gas
-self-gravity (direct and TreePM) is later work.
+Counterpart of `summersph_tpu/ops/gravity.py`.  `gas_gravity_direct` is
+the exact oracle the TreePM path (`ops/pm_gravity.py`) is held against,
+and serves `gravity='direct'`: receiver-side spline softening f(r / h_i)
+within 2h, Newtonian outside, a pure r > 0 guard.  Sink gravity is direct
+and unsoftened.
 """
 
 from __future__ import annotations
@@ -10,8 +13,35 @@ from typing import Tuple
 
 import torch
 
+from ..config import SimConfig
 from ..state import Particles, Sinks
 from ..utils.units import G
+from .kernels import grav_softening
+
+# Pair elements per row block of `gas_gravity_direct`, which bounds its
+# memory (about 10 temporaries of this many elements).
+DIRECT_BUDGET = 1 << 22
+
+
+def gas_gravity_direct(p: Particles, cfg: SimConfig) -> torch.Tensor:
+    """Exact softened all-pairs gas-gas gravity, in blocks of rows; zero
+    on dead rows."""
+    cm = torch.where(p.alive, p.mass, 0.0)
+    acc = torch.empty_like(p.pos)
+    block = max(1, DIRECT_BUDGET // max(p.capacity, 1))
+    for r0 in range(0, p.capacity, block):
+        xi = p.pos[r0:r0 + block]
+        d = [xi[:, c:c + 1] - p.pos[None, :, c] for c in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        r = torch.sqrt(r2)
+        valid = r > 0.0
+        f = grav_softening(r, p.h[r0:r0 + block, None])
+        inv_r3 = torch.where(valid, 1.0 / torch.where(valid, r2 * r, 1.0),
+                             0.0)
+        coef = -G * cm[None, :] * f * inv_r3
+        acc[r0:r0 + block] = torch.stack(
+            [torch.sum(coef * d[c], dim=-1) for c in range(3)], dim=-1)
+    return torch.where(p.alive[:, None], acc, 0.0)
 
 
 def sink_gravity(p: Particles,
@@ -43,4 +73,4 @@ def sink_gravity(p: Particles,
             torch.where(s.alive[:, None], acc_sink + acc_ss, 0.0))
 
 
-__all__ = ["sink_gravity"]
+__all__ = ["gas_gravity_direct", "sink_gravity"]

@@ -11,7 +11,7 @@ the design:
    one contiguous key range of 3 z-cells, [key + off - 1, key + off + 1];
 3. rows are grouped by `cfg.window_group` consecutive sorted particles, and
    each group's 9 candidate windows [starts, ends) are found by binary
-   search of the group's key span;
+   search of the group's key span (`group_windows`);
 4. a candidate belongs to row i's offset-o stencil iff its key lies in row
    i's own range, which is what the pair kernels test.
 
@@ -143,9 +143,22 @@ def sort_particles(p: Particles, cfg: SimConfig,
         alive=key_s != SENTINEL_KEY, omega=torch.ones_like(zero),
         rho=zero, pressure=zero, cs=zero, du=zero, dalpha=zero)
 
-    G = cap // wg
-    kmin = key_s.view(G, wg)[:, 0]
-    kmax = key_s.view(G, wg)[:, -1]
+    starts, ends = group_windows(key_s, wg)
+    grid = SortedGrid(key=key_s, starts=starts, ends=ends, origin=origin,
+                      cell_size=cell_size, n_clamped=n_clamped)
+    return p_s, grid
+
+
+def group_windows(key_s: torch.Tensor, window_group: int):
+    """(starts, ends), each int32 [G, 9]: the candidate range of every
+    group of `window_group` consecutive rows of the sorted keys `key_s`
+    (length a multiple of it) for each plane offset -- the keys in
+    [kmin + off - 1, kmax + off + 1] of the group's key span, cut at the
+    first dead (sentinel) row.  Both the SPH sort and the gravity sort
+    (`pm_gravity.pm_short_range`) take their windows from here."""
+    G = key_s.shape[0] // window_group
+    kmin = key_s.view(G, window_group)[:, 0]
+    kmax = key_s.view(G, window_group)[:, -1]
     first_dead = torch.sum(key_s != SENTINEL_KEY).to(torch.int32)
     offs = torch.tensor(PLANE_OFFSETS, dtype=torch.int32,
                         device=key_s.device)
@@ -153,12 +166,8 @@ def sort_particles(p: Particles, cfg: SimConfig,
     hi = (kmax[:, None] + offs[None, :] + 1).contiguous()
     starts = torch.searchsorted(key_s, lo, right=False, out_int32=True)
     ends = torch.searchsorted(key_s, hi, right=True, out_int32=True)
-    ends = torch.maximum(torch.minimum(ends, first_dead), starts)
-
-    grid = SortedGrid(key=key_s, starts=starts, ends=ends, origin=origin,
-                      cell_size=cell_size, n_clamped=n_clamped)
-    return p_s, grid
+    return starts, torch.maximum(torch.minimum(ends, first_dead), starts)
 
 
-__all__ = ["SortedGrid", "sort_particles", "PLANE_OFFSETS", "SENTINEL_KEY",
-           "WINDOW", "WINDOW_BITS", "LANES"]
+__all__ = ["SortedGrid", "sort_particles", "group_windows", "PLANE_OFFSETS",
+           "SENTINEL_KEY", "WINDOW", "WINDOW_BITS", "LANES"]

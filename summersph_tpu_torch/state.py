@@ -8,6 +8,10 @@ state has a fixed capacity: a dead particle has mass 0, sits at
 `to_numpy` and `from_numpy` carry a state across to numpy and back.  The
 dict is nested and holds numpy arrays under the JAX package's field names,
 so a state built by either package can start the other.
+
+Every constructor puts its tensors on the card (`device="cuda"`) unless
+the caller names another device; without a card that default raises
+(torch's own error) instead of moving quietly to the CPU.
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ class Particles(_Tree):
 
     @classmethod
     def zeros(cls, capacity: int, dtype=torch.float32,
-              device="cpu") -> "Particles":
+              device="cuda") -> "Particles":
         def z(*shape):
             return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -93,7 +97,7 @@ class Particles(_Tree):
     @classmethod
     def create(cls, pos, vel, mass, u, alpha=0.1, h=1.0,
                capacity: Optional[int] = None, dtype=torch.float32,
-               device="cpu") -> "Particles":
+               device="cuda") -> "Particles":
         """A live particle set from array-likes, padded to `capacity`."""
         pos = torch.as_tensor(pos, dtype=dtype, device=device)
         n = pos.shape[0]
@@ -138,7 +142,7 @@ class Sinks(_Tree):
 
     @classmethod
     def zeros(cls, capacity: int, dtype=torch.float32,
-              device="cpu") -> "Sinks":
+              device="cuda") -> "Sinks":
         z3 = torch.zeros((capacity, 3), dtype=dtype, device=device)
         z = torch.zeros(capacity, dtype=dtype, device=device)
         return cls(
@@ -150,7 +154,7 @@ class Sinks(_Tree):
 
     @classmethod
     def create(cls, pos, vel, mass, radius, capacity: Optional[int] = None,
-               dtype=torch.float32, device="cpu") -> "Sinks":
+               dtype=torch.float32, device="cuda") -> "Sinks":
         pos = torch.atleast_2d(torch.as_tensor(pos, dtype=dtype,
                                                device=device))
         n = pos.shape[0]
@@ -219,9 +223,10 @@ def to_numpy(state: SimState) -> dict:
     return out
 
 
-def from_numpy(d: dict, device="cpu") -> SimState:
-    """Inverse of `to_numpy`.  Arrays keep their dtypes; optional fields
-    (`u_c`, `acc_ext`, `pm_r_s`) are taken when present and not None."""
+def from_numpy(d: dict, device="cuda") -> SimState:
+    """Inverse of `to_numpy`, onto `device` (the card by default).  Arrays
+    keep their dtypes; optional fields (`u_c`, `acc_ext`, `pm_r_s`) are
+    taken when present and not None."""
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)
 

@@ -38,7 +38,7 @@ def port_particles(jp):
     """JAX Particles as port Particles (CPU), through the numpy bridge."""
     from summersph_tpu.state import SimState, Sinks
     jstate = SimState.create(jp, Sinks.zeros(1, jp.pos.dtype))
-    return tstate.from_numpy(jax_state_dict(jstate)).particles
+    return tstate.from_numpy(jax_state_dict(jstate), device="cpu").particles
 
 
 def test_config_fields_and_defaults_match_jax():
@@ -64,7 +64,7 @@ def test_numpy_round_trip_of_a_jax_state_is_exact(carries):
                                 acc_ext=jnp.ones_like(p.pos)),
             pm_r_s=jnp.asarray(0.5))
     d = jax_state_dict(jstate)
-    ours = tstate.from_numpy(d)
+    ours = tstate.from_numpy(d, device="cpu")
     back = tstate.to_numpy(ours)
     assert back.keys() == d.keys()
     for group in ("particles", "sinks"):
@@ -90,3 +90,24 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """disc_ic, the state constructors and from_numpy put their tensors on
+    the card unless the caller names another device; without a card that
+    default raises instead of moving to the CPU."""
+    import inspect
+
+    from summersph_tpu_torch.models.disc import disc_ic
+
+    for fn in (disc_ic, tstate.Particles.zeros, tstate.Particles.create,
+               tstate.Sinks.zeros, tstate.Sinks.create, tstate.from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        st, _ = disc_ic(n=64)
+        assert st.particles.pos.is_cuda and st.t.is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            disc_ic(n=64)
+        with pytest.raises((RuntimeError, AssertionError)):
+            tstate.Particles.zeros(8)

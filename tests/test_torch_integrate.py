@@ -42,8 +42,9 @@ def _cfg_kwargs():
 
 
 def _ic(pkg_disc_ic, cfg):
+    kw = {"device": "cpu"} if pkg_disc_ic is disc_ic else {}
     return pkg_disc_ic(n=N, r_max=100.0, m_star=5.0, h0=H0,
-                       rotation="keplerian", cfg=cfg, seed=0)[0]
+                       rotation="keplerian", cfg=cfg, seed=0, **kw)[0]
 
 
 @pytest.fixture(scope="module")
@@ -115,9 +116,9 @@ def test_health_and_diagnostics_after_ten_steps(runs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(gravity="pm"), dict(fixed_h=None), dict(dt_bins=2),
-    dict(pm_every=4), dict(grav_fuse_short=True), dict(neighbor_mode="grid"),
-    dict(sink_merge_factor=1.0)])
+    dict(gravity="pm", fixed_h=None), dict(fixed_h=None), dict(dt_bins=2),
+    dict(gravity="pm", dt_bins=2), dict(gravity="pm", neighbor_mode="dense"),
+    dict(neighbor_mode="grid"), dict(sink_merge_factor=1.0)])
 def test_unported_configurations_raise(change):
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     st = _ic(disc_ic, cfg)

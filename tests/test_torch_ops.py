@@ -59,7 +59,7 @@ def _state(n=96, n_sinks=3, sink_cap=4, seed=0, dead_every=7):
                        radius=rng.uniform(2.0, 4.0, n_sinks),
                        capacity=sink_cap, dtype=jnp.float64)
     jstate = JSimState.create(jp, js, dt=1e-3)
-    return jstate, tstate.from_numpy(jax_state_dict(jstate))
+    return jstate, tstate.from_numpy(jax_state_dict(jstate), device="cpu")
 
 
 def _compare_trees(ours, theirs, rtol):
@@ -187,7 +187,7 @@ def test_next_timestep_hysteresis_branches(case, bound):
     jst, _ = _state(seed=8)
     jp = jst.particles
     jst = jst.replace(particles=jp.replace(u=jnp.abs(jp.u)))
-    st = tstate.from_numpy(jax_state_dict(jst))
+    st = tstate.from_numpy(jax_state_dict(jst), device="cpu")
     jcfg = JaxConfig(dt_bound_candidate=bound)
     cand = float(jnp.min(jtimestep.dt_candidates(jst.particles, jcfg)))
     # dt relative to the candidate picks the branch; dt_max / dt_min are
@@ -231,7 +231,7 @@ def test_accrete_with_a_particle_inside_two_sinks():
     js = js.replace(pos=jnp.asarray(sp), radius=jnp.asarray([2.0, 2.0, 3.0,
                                                              0.0]))
     jst = jst.replace(sinks=js)
-    st = tstate.from_numpy(jax_state_dict(jst))
+    st = tstate.from_numpy(jax_state_dict(jst), device="cpu")
     jp2, js2 = jsinks.accrete(jst.particles, jst.sinks)
     p2, s2 = sinks.accrete(st.particles, st.sinks)
     assert bool(jp2.alive[1]) is False
@@ -250,7 +250,7 @@ def test_cull_bounds():
     sp = np.asarray(jst.sinks.pos).copy()
     sp[2] = [0.0, 0.0, -20.0]
     jst = jst.replace(sinks=jst.sinks.replace(pos=jnp.asarray(sp)))
-    st = tstate.from_numpy(jax_state_dict(jst))
+    st = tstate.from_numpy(jax_state_dict(jst), device="cpu")
     jcfg, cfg = JaxConfig(bounding_size=9.0), SimConfig(bounding_size=9.0)
     jp2, js2 = jsinks.cull_bounds(jst.particles, jst.sinks, jcfg)
     p2, s2 = sinks.cull_bounds(st.particles, st.sinks, cfg)

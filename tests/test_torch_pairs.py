@@ -183,3 +183,46 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     with pytest.raises(TypeError):
         cuda_pairs.density_sums(p2.map(
             lambda a: a.double() if a.is_floating_point() else a), cfg, grid)
+
+    # the fused form: the same five sums as force_fixed_h, plus gravity
+    split = (torch.tensor(0.9, device=cuda_device),
+             torch.tensor(4.5 * 0.9, device=cuda_device))
+    n0 = cuda_pairs.force_sums.fused_launches
+    fused = cuda_pairs.force_sums(p3, cfg, grid, split)
+    assert cuda_pairs.force_sums.fused_launches == n0 + 1
+    plain = cuda_pairs.force_sums_plain(p3, cfg, grid, split)
+    for a, b in zip(fused[:5], ours):
+        assert torch.equal(a, b)
+    exact = cuda_pairs.force_sums_plain(
+        p3.map(lambda a: a.double() if a.is_floating_point() else a), cfg,
+        grid, tuple(v.double() for v in split))[5]
+    _hold_gravity(fused[5], plain[5], exact)
+
+    # the short-range gravity kernel on the gravity sort
+    from summersph_tpu_torch.ops import pm_gravity
+    gcfg = cfg.with_(gravity="pm", window_group=32, grav_grid=128)
+    st, _ = disc_ic(n=32768, h0=5.0, cfg=gcfg, seed=2, device=cuda_device)
+    r_s = pm_gravity.pm_geometry(st.particles, gcfg)[2]
+    pos, m, h, ggrid, _, split = pm_gravity.gravity_sort(st.particles, gcfg,
+                                                         r_s)
+    n0 = cuda_pairs.grav_short_sums.launches
+    ours = cuda_pairs.grav_short_sums(pos, m, h, ggrid, gcfg, split)
+    assert cuda_pairs.grav_short_sums.launches == n0 + 1
+    plain = cuda_pairs.grav_short_sums_plain(pos, m, h, ggrid, gcfg, split)
+    exact = cuda_pairs.grav_short_sums_plain(
+        pos.double(), m.double(), h.double(), ggrid, gcfg,
+        tuple(v.double() for v in split))
+    _hold_gravity(ours, plain, exact)
+
+
+def _hold_gravity(ours, plain, exact):
+    """The gravity sums' terms f(r/h) - S(r) nearly cancel, so float32
+    loses digits in the kernel and its plain version alike: hold the
+    kernel against the plain version in float64 within rtol 2e-4 and
+    atol 1e-5 x max|component| + twice the float32 plain version's own
+    largest error."""
+    for name, a, b, r in zip(("gx", "gy", "gz"), ours, plain, exact):
+        floor = float((b.double() - r).abs().max())
+        torch.testing.assert_close(
+            a.double(), r, rtol=FORCE_TOL["rtol"],
+            atol=1e-5 * float(r.abs().max()) + 2 * floor, msg=name)
