@@ -1,12 +1,14 @@
 """summersph_tpu_torch: the PyTorch / CUDA port of summersph_tpu.
 
-It runs the fixed-h Keplerian-disc path on one NVIDIA H100: SFC sort ->
-hand-written CUDA density and force pair kernels (csrc/sph_pairs.cu) ->
+It runs the Keplerian disc and the self-gravitating collapse on one
+NVIDIA H100: SFC sort -> hand-written CUDA density and force pair kernels
+(csrc/sph_pairs.cu), with fixed h or in their grad-h variable-h forms ->
 EOS -> self-gravity (direct, or TreePM: the CIC mesh with torch.fft and
 the short-range CUDA kernel, or its form fused into the force kernel,
 with the far field optionally held for cfg.pm_every steps) -> sink
-gravity -> KDK leapfrog with the adaptive global timestep, sink accretion
-and bounds culling.  Entry points put their state on the card unless the
+gravity -> KDK leapfrog with the adaptive global timestep -> with
+variable h the Newton h-iteration and sink creation -> sink accretion,
+merging and bounds culling.  Entry points put their state on the card unless the
 caller asks for the CPU; on the CPU every kernel is replaced by its plain
 PyTorch version.  The package imports torch and numpy, never jax.
 """

@@ -39,7 +39,7 @@ class SimConfig:
     timestep_scale: float = 0.25
     end_time: float = 1000.0
 
-    # --- smoothing length: only fixed h runs in the port so far
+    # --- smoothing length: fixed, or None for the grad-h h-iteration
     fixed_h: Optional[float] = 2.5
 
     # --- artificial viscosity (Monaghan + Morris-Monaghan switch)
@@ -65,7 +65,7 @@ class SimConfig:
     sink_capacity: int = 8
     sink_create_density: float = 0.5
     sink_create_mass: float = 1.0e-11
-    sink_merge_factor: float = 0.0      # > 0 not ported yet
+    sink_merge_factor: float = 0.0      # > 0 merges close sinks
 
     # --- gravity: 'none', 'direct', TreePM ('pm'/'bh'/'treepm')
     gravity: str = "none"
@@ -94,7 +94,7 @@ class SimConfig:
     grav_pallas_window: int = 1024      # no effect
     grav_pallas_fetch: int = 1408       # no effect
 
-    # --- h-iteration (variable-h mode, not ported yet)
+    # --- h-iteration (variable-h mode, fixed_h=None)
     h_iter_max: int = 3
     sort_h_pad: float = 1.2
     cell_h_quantile: float = 1.0

@@ -1,13 +1,21 @@
 // Pair kernels for Hopper (sm_90a) over the sorted-window neighbour
-// structure (ops/sorted_grid.py): the fixed-h SPH density and force sums
-// and the TreePM short-range gravity sums.
+// structure (ops/sorted_grid.py): the SPH density and force sums, with
+// fixed or variable smoothing length, and the TreePM short-range gravity
+// sums.
 //
 // Replaces the TPU Pallas kernels of summersph_tpu/ops/pallas_pairs.py:
 //   density_fixed_h     <- _density_kernel / _density_body (B1), fixed h
+//   density_var_h       <- the same B1 with fixed_h=False: rho_raw and the
+//                          grad-h sum Omega_raw
 //   force_fixed_h       <- _force_kernel / _force_body (B2), fixed h
 //   force_fixed_h_grav  <- the same B2 with fuse_grav: the force sums plus
 //                          the short-range gravity sums on the same pairs
+//   force_var_h         <- B2 with fixed_h=False: two gradients dW(h_i),
+//                          dW(h_j), their mean, and hbar in the viscosity
+//   force_var_h_grav    <- B2 with fixed_h=False and fuse_grav
 //   grav_short          <- _grav_kernel / _grav_body (B3), ungated
+// The variable-h forms are template instantiations of the fixed-h kernels
+// (VARH); the fixed-h instantiations compile to the code they had.
 //
 // What bounds them: FP32 pair arithmetic.  Each row tests about 10^3
 // candidates (9 windows of ~100 candidates on the N = 1,048,576 disc; a
@@ -32,13 +40,18 @@
 //
 // The pair algebra follows the Pallas kernels term by term: the
 // rsqrt(max(r^2, 1e-12)) form, the r^2 > 0 self exclusion in the density
-// and gravity sums, the single-dW fixed-h force algebra, the 1e-30
-// denominator guards, grav_shape for the spline softening and the
-// Abramowitz-Stegun erf (erf_approx), not erff.  The gravity split
-// scalars (r_s, r_cut) change every step; the kernels read them from a
-// two-float device buffer, as the Pallas kernels read them from the pack's
-// pad rows, so the host never waits for them.  Every entry point launches
-// on the caller's stream, allocates nothing, and returns
+// and gravity sums, the single-dW fixed-h force algebra and the two-dW
+// variable-h one, the 1e-30 denominator guards, grav_shape for the spline
+// softening and the Abramowitz-Stegun erf (erf_approx), not erff.  With
+// variable h a force pair contributes while r < 2 max(h_i, h_j), so the
+// force kernels skip per pair at max(4 h_i^2, 4 h_j^2) (and r_cut^2 when
+// fused), never at 4 h_i^2 alone, which would drop the j-side term of every
+// pair with h_j > h_i.  The j-side h, its reciprocal, 4 h_j^2 and
+// 1 / (pi h_j^4) are formed once per tile entry, not once per pair.  The
+// gravity split scalars (r_s, r_cut) change every step; the kernels read
+// them from a two-float device buffer, as the Pallas kernels read them
+// from the pack's pad rows, so the host never waits for them.  Every entry
+// point launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -121,13 +134,16 @@ struct GravSplit {
 };
 
 // rho_raw[i] = sum_j m_j w(r_ij / h_i) / (pi h_i^3) over the 9 windows,
-// r_ij > 0 (the self term is added by pairs.finalize_density).
-__global__ void density_fixed_h_kernel(
+// r_ij > 0 (the self term is added by pairs.finalize_density).  VARH also
+// writes omega_raw[i] = sum_j m_j dW/dh(r_ij, h_i), whose shape is
+// -(3 w(q) + q w'(q)) / (pi h_i^4) (pallas_pairs.py _density_body).
+template <bool VARH>
+__global__ void density_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ z, const float* __restrict__ m,
     const float* __restrict__ h, const int* __restrict__ key,
     const int* __restrict__ starts, const int* __restrict__ ends,
-    float* __restrict__ rho_raw, int n) {
+    float* __restrict__ rho_raw, float* __restrict__ omega_raw, int n) {
   __shared__ float sx[TILE], sy[TILE], sz[TILE], sm[TILE];
   __shared__ int sk[TILE];
 
@@ -143,6 +159,7 @@ __global__ void density_fixed_h_kernel(
   const float support2 = 4.0f * hi * hi;
 
   float rho = 0.0f;
+  float om = 0.0f;
   for (int o = 0; o < 9; ++o) {
     const int s = starts[g * 9 + o];
     const int e = ends[g * 9 + o];
@@ -167,26 +184,42 @@ __global__ void density_fixed_h_kernel(
         const float r2 = dx * dx + dy * dy + dz * dz;
         if (!(r2 > 0.0f && r2 < support2)) continue;
         const float r = r2 * rsqrtf(fmaxf(r2, 1.0e-12f));
-        rho += sm[j] * w_shape(r * inv_hi);
+        if constexpr (VARH) {
+          const float q = r * inv_hi;
+          const float w = w_shape(q);
+          rho += sm[j] * w;
+          om += sm[j] * -(3.0f * w + q * dw_shape(q));
+        } else {
+          rho += sm[j] * w_shape(r * inv_hi);
+        }
       }
       __syncthreads();
     }
   }
-  if (row) rho_raw[i] = rho * (INV_PI * inv_hi * inv_hi * inv_hi);
+  const float inv_pi_h3 = INV_PI * inv_hi * inv_hi * inv_hi;
+  if (row) {
+    rho_raw[i] = rho * inv_pi_h3;
+    if constexpr (VARH) omega_raw[i] = om * inv_pi_h3 * inv_hi;
+  }
 }
 
-// (ax, ay, az, du, alpha_raw)[i]: pressure + Monaghan viscosity with one
-// dW (fixed h, h_j == h_i), summed over the 9 windows.  pterm_j =
-// P_j / max(Omega_j rho_j^2, 1e-30) is formed once per tile entry.
+// (ax, ay, az, du, alpha_raw)[i]: pressure + Monaghan viscosity summed
+// over the 9 windows.  pterm_j = P_j / max(Omega_j rho_j^2, 1e-30) is
+// formed once per tile entry.  Without VARH (fixed h, h_j == h_i) one dW
+// serves both sides.  VARH is the grad-h form: dW_i = w'(r/h_i) / (pi
+// h_i^4), dW_j = w'(r/h_j) / (pi h_j^4), their mean dWbar in the viscous
+// and heating terms, hbar = (h_i + h_j) / 2 in mu and in av_eps hbar^2;
+// h_j, 1 / h_j, 1 / (pi h_j^4) and 4 h_j^2 are staged per tile entry, and
+// a pair is skipped only beyond max(4 h_i^2, 4 h_j^2).
 // FUSE adds (gx, gy, gz)[i], the short-range gravity sums over the same
 // candidates for 0 < r < r_cut (the Pallas fuse_grav form).  Its early
-// skip is then at max(4 h^2, r_cut^2), so the gravity sums equal the
-// Pallas ones even on a step whose r_cut exceeds the SPH cell (a step
+// skip is then at max(that support, r_cut^2), so the gravity sums equal
+// the Pallas ones even on a step whose r_cut exceeds the SPH cell (a step
 // integrate.py reports in the grav_window_overflow slot).  Without FUSE
 // the split and gravity outputs are unused and the code is the plain
-// force kernel's.
-template <bool FUSE>
-__global__ void force_fixed_h_kernel(
+// force kernel's; without VARH it is the fixed-h kernel's.
+template <bool VARH, bool FUSE>
+__global__ void force_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ z, const float* __restrict__ vx,
     const float* __restrict__ vy, const float* __restrict__ vz,
@@ -200,10 +233,12 @@ __global__ void force_fixed_h_kernel(
     float* __restrict__ out_araw, const float* __restrict__ split,
     float* __restrict__ out_gx, float* __restrict__ out_gy,
     float* __restrict__ out_gz, int n, float av_eps, float beta_factor) {
+  constexpr int VT = VARH ? TILE : 1;
   __shared__ float sx[TILE], sy[TILE], sz[TILE];
   __shared__ float svx[TILE], svy[TILE], svz[TILE];
   __shared__ float sm[TILE], spt[TILE], srho[TILE], scs[TILE], sal[TILE];
   __shared__ int sk[TILE];
+  __shared__ float sh[VT], sinv_h[VT], sinv_pi_h4[VT], ssup2[VT];
 
   const int g = blockIdx.x;
   const int i = g * blockDim.x + threadIdx.x;
@@ -255,6 +290,14 @@ __global__ void force_fixed_h_kernel(
         scs[j] = cs[c];
         sal[j] = alpha[c];
         sk[j] = key[c];
+        if constexpr (VARH) {
+          const float hc = h[c];
+          const float ihc = 1.0f / hc;
+          sh[j] = hc;
+          sinv_h[j] = ihc;
+          sinv_pi_h4[j] = (INV_PI * ihc * ihc) * (ihc * ihc);
+          ssup2[j] = 4.0f * hc * hc;
+        }
       }
       __syncthreads();
       for (int j = 0; j < cnt; ++j) {
@@ -264,8 +307,15 @@ __global__ void force_fixed_h_kernel(
         const float dy = yi - sy[j];
         const float dz = zi - sz[j];
         const float r2 = dx * dx + dy * dy + dz * dz;
-        // dw_shape vanishes beyond 2h, and so does every SPH term below
-        if (!(r2 < cutoff2)) continue;
+        // dw_shape vanishes beyond 2h, and so does every SPH term below;
+        // with variable h beyond 2 max(h_i, h_j)
+        float sph2 = support2;
+        float cut2 = cutoff2;
+        if constexpr (VARH) {
+          sph2 = fmaxf(support2, ssup2[j]);
+          cut2 = fmaxf(cutoff2, ssup2[j]);
+        }
+        if (!(r2 < cut2)) continue;
         const float inv_r = rsqrtf(fmaxf(r2, 1.0e-12f));
         const float r = r2 * inv_r;
         const float mj = sm[j];
@@ -276,27 +326,54 @@ __global__ void force_fixed_h_kernel(
             gy += gc * dy;
             gz += gc * dz;
           }
-          if (!(r2 < support2)) continue;
+          if (!(r2 < sph2)) continue;
         }
-        const float dw = dw_shape(r * inv_hi) * inv_pi_hi4;
-        const float dvx = vxi - svx[j];
-        const float dvy = vyi - svy[j];
-        const float dvz = vzi - svz[j];
-        const float vdotr = dvx * dx + dvy * dy + dvz * dz;
-        const float mu = hi * fminf(vdotr, 0.0f) / (r2 + av_h2);
-        const float cbar = 0.5f * (csi + scs[j]);
-        const float abar = 0.5f * (ali + sal[j]);
-        const float rhobar = 0.5f * (rhoi + srho[j]);
-        const float visc = (-abar * cbar * mu + beta_factor * abar * mu * mu)
-                           / fmaxf(rhobar, 1.0e-30f);
-        // self pairs vanish without a guard: dw(0) == 0 and vdotr == 0
-        const float coef = -mj * ((pterm_i + spt[j] + visc) * dw) * inv_r;
-        ax += coef * dx;
-        ay += coef * dy;
-        az += coef * dz;
-        const float vgw = vdotr * inv_r * dw;
-        du += mj * vgw * (pterm_i + 0.5f * visc);
-        araw += mj * vgw;
+        if constexpr (VARH) {
+          const float dw_i = dw_shape(r * inv_hi) * inv_pi_hi4;
+          const float dw_j = dw_shape(r * sinv_h[j]) * sinv_pi_h4[j];
+          const float dwbar = 0.5f * (dw_i + dw_j);
+          const float dvx = vxi - svx[j];
+          const float dvy = vyi - svy[j];
+          const float dvz = vzi - svz[j];
+          const float vdotr = dvx * dx + dvy * dy + dvz * dz;
+          const float hbar = 0.5f * (hi + sh[j]);
+          const float mu = hbar * fminf(vdotr, 0.0f)
+                           / (r2 + av_eps * hbar * hbar);
+          const float cbar = 0.5f * (csi + scs[j]);
+          const float abar = 0.5f * (ali + sal[j]);
+          const float rhobar = 0.5f * (rhoi + srho[j]);
+          const float visc = (-abar * cbar * mu + beta_factor * abar * mu * mu)
+                             / fmaxf(rhobar, 1.0e-30f);
+          // self pairs vanish without a guard: dw(0) == 0 and vdotr == 0
+          const float scal = pterm_i * dw_i + spt[j] * dw_j + visc * dwbar;
+          const float coef = -mj * scal * inv_r;
+          ax += coef * dx;
+          ay += coef * dy;
+          az += coef * dz;
+          const float vgw = vdotr * inv_r * dwbar;
+          du += mj * vgw * (pterm_i + 0.5f * visc);
+          araw += mj * vgw;
+        } else {
+          const float dw = dw_shape(r * inv_hi) * inv_pi_hi4;
+          const float dvx = vxi - svx[j];
+          const float dvy = vyi - svy[j];
+          const float dvz = vzi - svz[j];
+          const float vdotr = dvx * dx + dvy * dy + dvz * dz;
+          const float mu = hi * fminf(vdotr, 0.0f) / (r2 + av_h2);
+          const float cbar = 0.5f * (csi + scs[j]);
+          const float abar = 0.5f * (ali + sal[j]);
+          const float rhobar = 0.5f * (rhoi + srho[j]);
+          const float visc = (-abar * cbar * mu + beta_factor * abar * mu * mu)
+                             / fmaxf(rhobar, 1.0e-30f);
+          // self pairs vanish without a guard: dw(0) == 0 and vdotr == 0
+          const float coef = -mj * ((pterm_i + spt[j] + visc) * dw) * inv_r;
+          ax += coef * dx;
+          ay += coef * dy;
+          az += coef * dz;
+          const float vgw = vdotr * inv_r * dw;
+          du += mj * vgw * (pterm_i + 0.5f * visc);
+          araw += mj * vgw;
+        }
       }
       __syncthreads();
     }
@@ -379,6 +456,27 @@ __global__ void grav_short_kernel(
   }
 }
 
+// One launch of force_kernel<VARH, FUSE>: a block per window group.
+template <bool VARH, bool FUSE>
+int launch_force(const float* x, const float* y, const float* z,
+                 const float* vx, const float* vy, const float* vz,
+                 const float* m, const float* h, const int* key,
+                 const float* pres, const float* rho, const float* omega,
+                 const float* cs, const float* alpha, const int* starts,
+                 const int* ends, float* ax, float* ay, float* az, float* du,
+                 float* araw, const float* split, float* gx, float* gy,
+                 float* gz, int n, int wg, float av_eps, float beta_factor,
+                 void* stream) {
+  const int groups = n / wg;
+  if (groups > 0) {
+    force_kernel<VARH, FUSE><<<groups, wg, 0, (cudaStream_t)stream>>>(
+        x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha,
+        starts, ends, ax, ay, az, du, araw, split, gx, gy, gz, n, av_eps,
+        beta_factor);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -390,8 +488,21 @@ int density_fixed_h(const float* x, const float* y, const float* z,
                     int n, int wg, void* stream) {
   const int groups = n / wg;
   if (groups > 0) {
-    density_fixed_h_kernel<<<groups, wg, 0, (cudaStream_t)stream>>>(
-        x, y, z, m, h, key, starts, ends, rho_raw, n);
+    density_kernel<false><<<groups, wg, 0, (cudaStream_t)stream>>>(
+        x, y, z, m, h, key, starts, ends, rho_raw, nullptr, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// density_fixed_h plus the grad-h sums omega_raw (variable h).
+int density_var_h(const float* x, const float* y, const float* z,
+                  const float* m, const float* h, const int* key,
+                  const int* starts, const int* ends, float* rho_raw,
+                  float* omega_raw, int n, int wg, void* stream) {
+  const int groups = n / wg;
+  if (groups > 0) {
+    density_kernel<true><<<groups, wg, 0, (cudaStream_t)stream>>>(
+        x, y, z, m, h, key, starts, ends, rho_raw, omega_raw, n);
   }
   return (int)cudaGetLastError();
 }
@@ -404,14 +515,10 @@ int force_fixed_h(const float* x, const float* y, const float* z,
                   const int* ends, float* ax, float* ay, float* az,
                   float* du, float* araw, int n, int wg, float av_eps,
                   float beta_factor, void* stream) {
-  const int groups = n / wg;
-  if (groups > 0) {
-    force_fixed_h_kernel<false><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha,
-        starts, ends, ax, ay, az, du, araw, nullptr, nullptr, nullptr,
-        nullptr, n, av_eps, beta_factor);
-  }
-  return (int)cudaGetLastError();
+  return launch_force<false, false>(
+      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
+      ends, ax, ay, az, du, araw, nullptr, nullptr, nullptr, nullptr, n, wg,
+      av_eps, beta_factor, stream);
 }
 
 // force_fixed_h plus the short-range gravity sums gx, gy, gz; split is
@@ -426,14 +533,41 @@ int force_fixed_h_grav(const float* x, const float* y, const float* z,
                        float* du, float* araw, const float* split, float* gx,
                        float* gy, float* gz, int n, int wg, float av_eps,
                        float beta_factor, void* stream) {
-  const int groups = n / wg;
-  if (groups > 0) {
-    force_fixed_h_kernel<true><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha,
-        starts, ends, ax, ay, az, du, araw, split, gx, gy, gz, n, av_eps,
-        beta_factor);
-  }
-  return (int)cudaGetLastError();
+  return launch_force<false, true>(
+      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
+      ends, ax, ay, az, du, araw, split, gx, gy, gz, n, wg, av_eps,
+      beta_factor, stream);
+}
+
+// The variable-h forms of force_fixed_h and force_fixed_h_grav, with the
+// same arguments.
+int force_var_h(const float* x, const float* y, const float* z,
+                const float* vx, const float* vy, const float* vz,
+                const float* m, const float* h, const int* key,
+                const float* pres, const float* rho, const float* omega,
+                const float* cs, const float* alpha, const int* starts,
+                const int* ends, float* ax, float* ay, float* az, float* du,
+                float* araw, int n, int wg, float av_eps, float beta_factor,
+                void* stream) {
+  return launch_force<true, false>(
+      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
+      ends, ax, ay, az, du, araw, nullptr, nullptr, nullptr, nullptr, n, wg,
+      av_eps, beta_factor, stream);
+}
+
+int force_var_h_grav(const float* x, const float* y, const float* z,
+                     const float* vx, const float* vy, const float* vz,
+                     const float* m, const float* h, const int* key,
+                     const float* pres, const float* rho, const float* omega,
+                     const float* cs, const float* alpha, const int* starts,
+                     const int* ends, float* ax, float* ay, float* az,
+                     float* du, float* araw, const float* split, float* gx,
+                     float* gy, float* gz, int n, int wg, float av_eps,
+                     float beta_factor, void* stream) {
+  return launch_force<true, true>(
+      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
+      ends, ax, ay, az, du, araw, split, gx, gy, gz, n, wg, av_eps,
+      beta_factor, stream);
 }
 
 // Short-range gravity sums on the gravity sort; split is {r_s, r_cut}.

@@ -1,6 +1,7 @@
-"""KDK leapfrog on the sorted, single-device, fixed-h path, with sink
-gravity and optional gas self-gravity (direct, or TreePM with the fused
-or separate short range and the held far field).
+"""KDK leapfrog on the sorted, single-device path, with fixed or variable
+(grad-h) smoothing length, sink gravity, optional gas self-gravity (direct,
+or TreePM with the fused or separate short range and the held far field),
+and sink creation and merging.
 
 Counterpart of `summersph_tpu/integrate.py`.  One step:
 
@@ -9,7 +10,8 @@ Counterpart of `summersph_tpu/integrate.py`.  One step:
     [self-gravity: PM mesh + short-range kernel, or the fused force kernel]
     sink gravity ; kick(dt/2)
     t += dt ; dt hysteresis update
-    sink accretion ; bounds cull ; health counters
+    [variable h: h-iteration on the step's sort ; sink creation]
+    sink accretion ; [sink merging] ; bounds cull ; health counters
 
 With `cfg.reuse_forces` (the default) the rates of the previous step's
 evaluation feed the first half-kick, so a step evaluates forces once and
@@ -37,7 +39,8 @@ from .ops.gravity import gas_gravity_direct, sink_gravity
 from .ops.pm_gravity import (PM_MODES, gas_gravity_pm, gas_gravity_pm_held,
                              pm_geometry, pm_long_range_held,
                              recompute_far_field)
-from .ops.sinks import accrete, cull_bounds
+from .ops.sinks import accrete, create_sinks, cull_bounds, merge_sinks
+from .ops.smoothing import update_smoothing
 from .ops.sorted_grid import sort_particles
 from .ops.timestep import next_timestep
 from .state import Particles, SimState, Sinks
@@ -47,15 +50,11 @@ def check_supported(cfg: SimConfig, axis_name: Optional[str] = None):
     """Raise NotImplementedError for a configuration the port does not run
     yet (ROADMAP.md lists the later slices)."""
     problems = []
-    if cfg.fixed_h is None:
-        problems.append("variable h (fixed_h=None)")
     if cfg.dt_bins > 1:
         problems.append(f"block timesteps (dt_bins={cfg.dt_bins})")
     if cfg.neighbor_mode != "sorted":
         problems.append(f"neighbor_mode={cfg.neighbor_mode!r} "
                         f"(only 'sorted')")
-    if cfg.sink_merge_factor > 0.0:
-        problems.append("sink merging (sink_merge_factor > 0)")
     if axis_name is not None:
         problems.append(f"multi-device runs (axis_name={axis_name!r})")
     if problems:
@@ -97,8 +96,11 @@ def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
     """force_eval on the sorted window engine.  Self-gravity takes one of
     four branches: direct; TreePM with the short range fused into the
     force kernel; TreePM with the separate short-range kernel; either
-    TreePM form with the far field held between solves (cfg.pm_every)."""
-    p2, sgrid = sort_particles(p, cfg, h_pad=1.0)
+    TreePM form with the far field held between solves (cfg.pm_every).
+    With variable h the sort carries `cfg.sort_h_pad` cell headroom, so
+    the same grid stays exact through the step's h-iteration."""
+    h_pad = 1.0 if cfg.fixed_h is not None else cfg.sort_h_pad
+    p2, sgrid = sort_particles(p, cfg, h_pad=h_pad)
     pm_grav = cfg.gravity in PM_MODES
     fuse = cfg.grav_fuse_short and pm_grav
     phase = r_s_held = None
@@ -181,14 +183,16 @@ def drift(p: Particles, s: Sinks, dt):
     return p, s
 
 
-def _coverage_stats(cfg: SimConfig, grid, grav_over, nonfinite):
+def _coverage_stats(cfg: SimConfig, grid, grav_over, n_unconverged,
+                    nonfinite, sink_full):
     """int32[len(STATS_FIELDS)] health counters for this step.  The
-    h-iteration, sink-creation and decomposition slots stay 0: variable h,
-    sink creation and multi-device runs are not ported."""
+    decomposition slot stays 0: multi-device runs are not ported."""
     zero = torch.zeros((), dtype=torch.int32, device=grid.key.device)
     return torch.stack([window_overflow(grid, cfg), grid.n_clamped,
-                        grav_over.to(torch.int32), zero,
-                        nonfinite.to(torch.int32), zero, zero])
+                        grav_over.to(torch.int32),
+                        n_unconverged.to(torch.int32),
+                        nonfinite.to(torch.int32), sink_full.to(torch.int32),
+                        zero])
 
 
 def _count_nonfinite(p: Particles) -> torch.Tensor:
@@ -235,10 +239,19 @@ def _step(state: SimState, cfg: SimConfig, axis_name: Optional[str],
     t = state.t + dt
     dt = next_timestep(p, dt, cfg)
 
+    n_unconverged = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    sink_full = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    if cfg.fixed_h is None:
+        p, n_unconverged = update_smoothing(p, cfg, grid=grid)
+        s, sink_full = create_sinks(p, s, cfg)
+
     p, s = accrete(p, s)
+    if cfg.sink_merge_factor > 0.0:
+        s, _ = merge_sinks(s, cfg)
     p, s = cull_bounds(p, s, cfg)
 
-    stats = _coverage_stats(cfg, grid, grav_over, _count_nonfinite(p))
+    stats = _coverage_stats(cfg, grid, grav_over, n_unconverged,
+                            _count_nonfinite(p), sink_full)
     if p.capacity != cap0:  # drop the sort's dead pad slots
         p = p.map(lambda a: a[:cap0])
     out = state.replace(particles=p, sinks=s, t=t, dt=dt, stats=stats)

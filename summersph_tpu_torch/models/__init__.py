@@ -1,5 +1,5 @@
 """Initial conditions."""
 
-from .disc import disc_ic
+from .disc import collapse_ic, disc_ic
 
-__all__ = ["disc_ic"]
+__all__ = ["disc_ic", "collapse_ic"]

@@ -1,6 +1,7 @@
 """Keplerian disc / sphere initial conditions.  Counterpart of `disc_ic`
-in `summersph_tpu/models/disc.py`: the same numpy sampler, so the same
-seed gives the same initial state, bit for bit, in either package."""
+and `collapse_ic` in `summersph_tpu/models/disc.py`: the same numpy
+sampler, so the same seed gives the same initial state, bit for bit, in
+either package."""
 
 from __future__ import annotations
 
@@ -80,4 +81,15 @@ def disc_ic(
     return SimState.create(p, s, dt=cfg.dt_init), cfg
 
 
-__all__ = ["disc_ic"]
+def collapse_ic(n: int = 20000, r_max: float = 100.0, m_total: float = 5.0,
+                device="cuda", **kw):
+    """Self-gravitating collapse sphere: `disc_ic` with no central star
+    (a zero-mass dummy sink) and, unless given, rigid rotation.  Returns
+    (SimState, SimConfig) on `device` (the card unless the caller asks for
+    another)."""
+    kw.setdefault("rotation", "rigid")
+    kw.setdefault("m_star", 0.0)
+    return disc_ic(n=n, r_max=r_max, m_disc=m_total, device=device, **kw)
+
+
+__all__ = ["disc_ic", "collapse_ic"]

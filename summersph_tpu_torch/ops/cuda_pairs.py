@@ -4,12 +4,16 @@ PyTorch versions.  Counterpart of `summersph_tpu/ops/pallas_pairs.py`.
 `density_sums`, `force_sums` and `grav_short_sums` dispatch by device: a
 tensor on the CPU takes the plain version (`density_sums_plain`,
 `force_sums_plain`, `grav_short_sums_plain`), a tensor on a CUDA card
-launches the hand-written kernel (`csrc/sph_pairs.cu`: `density_fixed_h`,
-`force_fixed_h`, `force_fixed_h_grav` with `grav_split`, `grav_short`) or
-raises.  There is no fallback from a kernel to its plain version.  Each
-wrapper counts its kernel launches in a plain integer attribute:
-`density_sums.launches`, `force_sums.launches` (`force_fixed_h`),
-`force_sums.fused_launches` (`force_fixed_h_grav`) and
+launches the hand-written kernel (`csrc/sph_pairs.cu`) or raises.  There
+is no fallback from a kernel to its plain version.  The SPH passes also
+dispatch on `cfg.fixed_h`: fixed h launches `density_fixed_h` and
+`force_fixed_h` (`force_fixed_h_grav` with `grav_split`), variable h
+(`fixed_h=None`) their grad-h forms `density_var_h` and `force_var_h`
+(`force_var_h_grav`).  Each wrapper counts its kernel launches in plain
+integer attributes, one per kernel: `density_sums.launches`
+(`density_fixed_h`), `density_sums.var_launches` (`density_var_h`),
+`force_sums.launches`, `force_sums.fused_launches`,
+`force_sums.var_launches`, `force_sums.var_fused_launches` and
 `grav_short_sums.launches`.
 
 Both versions compute the same sums over the same ranges: for every
@@ -23,8 +27,7 @@ capped, `window_overflow` is 0.
 
 The gravity split (r_s, r_cut) of a step is a pair of 0-d tensors; the
 kernels read it from a two-float device buffer, so no wrapper waits for
-the card.  Fixed h only; the kernels take float32 only, as the TPU kernels
-do.
+the card.  The kernels take float32 only, as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -50,25 +53,26 @@ SOURCE = "summersph_tpu_torch/csrc/sph_pairs.cu"
 PAIR_BUDGET = 1 << 23
 
 
-def _require_fixed_h(cfg: SimConfig):
-    if cfg.fixed_h is None:
-        raise NotImplementedError(
-            "the pair passes are ported for fixed h only (cfg.fixed_h); "
-            "variable h is later work")
+def _on_cpu(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its plain version: only for a CPU tensor."""
+    return t.device.type == "cpu"
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("sph_pairs")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.density_fixed_h.argtypes = [ptr] * 9 + [i32, i32, ptr]
-    lib.density_fixed_h.restype = i32
-    lib.force_fixed_h.argtypes = [ptr] * 21 + [i32, i32, f32, f32, ptr]
-    lib.force_fixed_h.restype = i32
-    lib.force_fixed_h_grav.argtypes = [ptr] * 25 + [i32, i32, f32, f32, ptr]
-    lib.force_fixed_h_grav.restype = i32
-    lib.grav_short.argtypes = [ptr] * 12 + [i32, i32, ptr]
-    lib.grav_short.restype = i32
+    for name, n_ptr, tail in (
+            ("density_fixed_h", 9, [i32, i32, ptr]),
+            ("density_var_h", 10, [i32, i32, ptr]),
+            ("force_fixed_h", 21, [i32, i32, f32, f32, ptr]),
+            ("force_var_h", 21, [i32, i32, f32, f32, ptr]),
+            ("force_fixed_h_grav", 25, [i32, i32, f32, f32, ptr]),
+            ("force_var_h_grav", 25, [i32, i32, f32, f32, ptr]),
+            ("grav_short", 12, [i32, i32, ptr])):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * n_ptr + tail
+        fn.restype = i32
     return lib
 
 
@@ -126,13 +130,14 @@ def _groups(n: int, cfg: SimConfig, grid: SortedGrid) -> int:
 
 # --------------------------------------------------------------- density
 
-def density_sums(p: Particles, cfg: SimConfig,
-                 grid: SortedGrid) -> torch.Tensor:
-    """rho_raw [N] = sum_j m_j W(r_ij, h_i) over the windows, self excluded
-    (pairs.finalize_density adds it).  CPU: the plain version; CUDA: the
-    `density_fixed_h` kernel."""
-    _require_fixed_h(cfg)
-    if p.pos.device.type == "cpu":
+def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid):
+    """(rho_raw, omega_raw), each [N]: rho_raw = sum_j m_j W(r_ij, h_i)
+    over the windows, self excluded (pairs.finalize_density adds it), and
+    with variable h the grad-h sum omega_raw = sum_j m_j dW/dh(r_ij, h_i);
+    with fixed h omega_raw is zero, as `pallas_density_sums` returns it.
+    CPU: the plain version; CUDA: the `density_fixed_h` kernel, or
+    `density_var_h` when cfg.fixed_h is None."""
+    if _on_cpu(p.pos):
         return density_sums_plain(p, cfg, grid)
     n = p.capacity
     groups = _groups(n, cfg, grid)
@@ -143,16 +148,23 @@ def density_sums(p: Particles, cfg: SimConfig,
                         "h": h}, {"key": grid.key}, grid)
     rho = torch.empty(n, dtype=torch.float32, device=p.pos.device)
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
-    _launch(_library().density_fixed_h,
-            pos[0].data_ptr(), pos[1].data_ptr(), pos[2].data_ptr(),
+    args = (pos[0].data_ptr(), pos[1].data_ptr(), pos[2].data_ptr(),
             m.data_ptr(), h.data_ptr(), grid.key.data_ptr(),
-            grid.starts.data_ptr(), grid.ends.data_ptr(), rho.data_ptr(),
-            n, cfg.window_group, stream)
-    density_sums.launches += 1
-    return rho
+            grid.starts.data_ptr(), grid.ends.data_ptr(), rho.data_ptr())
+    if cfg.fixed_h is not None:
+        _launch(_library().density_fixed_h, *args, n, cfg.window_group,
+                stream)
+        density_sums.launches += 1
+        return rho, torch.zeros_like(rho)
+    omega = torch.empty_like(rho)
+    _launch(_library().density_var_h, *args, omega.data_ptr(), n,
+            cfg.window_group, stream)
+    density_sums.var_launches += 1
+    return rho, omega
 
 
 density_sums.launches = 0
+density_sums.var_launches = 0
 
 
 def _candidate_chunks(grid: SortedGrid, wg: int):
@@ -197,27 +209,46 @@ def _pair_geometry(pos: torch.Tensor, grid: SortedGrid, wg: int, g0, g1,
     return rows, mask, d[0], d[1], d[2], r2
 
 
-def density_sums_plain(p: Particles, cfg: SimConfig,
-                       grid: SortedGrid) -> torch.Tensor:
-    """Plain PyTorch version of `density_fixed_h`, on any device and dtype:
-    the same pair algebra (rsqrt(max(r^2, 1e-12)) form, r^2 > 0 self
-    exclusion) over the same ranges, in chunks of window groups."""
-    _require_fixed_h(cfg)
+def density_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid):
+    """Plain PyTorch version of `density_fixed_h` and `density_var_h`, on
+    any device and dtype: the same pair algebra (rsqrt(max(r^2, 1e-12))
+    form, r^2 > 0 self exclusion, dW/dh shape -(3 w + q w')) over the same
+    ranges, in chunks of window groups."""
     wg = cfg.window_group
     _groups(p.capacity, cfg, grid)
+    var = cfg.fixed_h is None
     m_all = torch.where(p.alive, p.mass, 0.0)
-    out = torch.empty_like(p.h)
+    rho = torch.empty_like(p.h)
+    omega = torch.zeros_like(p.h)
     for g0, g1, idx, valid, off in _candidate_chunks(grid, wg):
         rows, mask, _, _, _, r2 = _pair_geometry(p.pos, grid, wg, g0, g1,
                                                  idx, valid, off)
         inv_hi = 1.0 / p.h[rows].reshape(g1 - g0, wg, 1)
         r = r2 * torch.rsqrt(torch.clamp(r2, min=1.0e-12))
-        w = w_shape(r * inv_hi)
+        q = r * inv_hi
+        w = w_shape(q)
         m = torch.where(mask & (r2 > 0.0), m_all[idx][:, None, :], 0.0)
         inv_pi_h3 = (1.0 / PI) * inv_hi * inv_hi * inv_hi
-        out[rows] = (torch.sum(m * w, dim=-1, keepdim=True)
+        rho[rows] = (torch.sum(m * w, dim=-1, keepdim=True)
                      * inv_pi_h3).reshape(-1)
-    return out
+        if var:
+            dwdh = -(3.0 * w + q * dw_shape(q))
+            omega[rows] = (torch.sum(m * dwdh, dim=-1, keepdim=True)
+                           * inv_pi_h3 * inv_hi).reshape(-1)
+    return rho, omega
+
+
+def density(p: Particles, cfg: SimConfig, grid: SortedGrid) -> Particles:
+    """`p` with rho and omega from the density pass: the sums, the self
+    term and the grad-h correction (`pairs.finalize_density`); omega is 1
+    with fixed h.  Counterpart of `pallas_density`, which the h-iteration
+    re-sums through."""
+    rho_raw, omega_raw = density_sums(p, cfg, grid)
+    rho, omega = pairs.finalize_density(rho_raw, omega_raw, p.h, p.alive,
+                                        p.mass)
+    if cfg.fixed_h is not None:
+        omega = torch.ones_like(omega)
+    return p.replace(rho=rho, omega=omega)
 
 
 # ----------------------------------------------------------------- force
@@ -225,15 +256,15 @@ def density_sums_plain(p: Particles, cfg: SimConfig,
 def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
                grav_split=None):
     """(ax, ay, az, du, alpha_raw), each [N]: pressure + Monaghan
-    viscosity with one dW (fixed h).  `p` must carry rho/P/omega/cs from
-    the density pass.  With `grav_split` = (r_s, r_cut) also the
-    short-range gravity sums over the same windows, as a last element
-    (gx, gy, gz) (the fused form, `pallas_force_sums` with fuse_grav; the
-    caller checks that r_cut fits the SPH cell).  CPU: the plain version;
-    CUDA: the `force_fixed_h` kernel, or `force_fixed_h_grav` with
-    `grav_split`."""
-    _require_fixed_h(cfg)
-    if p.pos.device.type == "cpu":
+    viscosity, with one dW for fixed h or the grad-h pair of gradients and
+    hbar for variable h.  `p` must carry rho/P/omega/cs from the density
+    pass.  With `grav_split` = (r_s, r_cut) also the short-range gravity
+    sums over the same windows, as a last element (gx, gy, gz) (the fused
+    form, `pallas_force_sums` with fuse_grav; the caller checks that r_cut
+    fits the SPH cell).  CPU: the plain version; CUDA: `force_fixed_h` or
+    `force_var_h`, or with `grav_split` `force_fixed_h_grav` or
+    `force_var_h_grav`, by cfg.fixed_h."""
+    if _on_cpu(p.pos):
         return force_sums_plain(p, cfg, grid, grav_split)
     n = p.capacity
     groups = _groups(n, cfg, grid)
@@ -257,33 +288,50 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
             grid.starts.data_ptr(), grid.ends.data_ptr(),
             *(outs[c].data_ptr() for c in range(5)))
     tail = (n, cfg.window_group, cfg.av_eps, cfg.beta_factor, stream)
+    lib = _library()
+    var = cfg.fixed_h is None
     if grav_split is None:
-        _launch(_library().force_fixed_h, *args, *tail)
-        force_sums.launches += 1
+        if var:
+            _launch(lib.force_var_h, *args, *tail)
+            force_sums.var_launches += 1
+        else:
+            _launch(lib.force_fixed_h, *args, *tail)
+            force_sums.launches += 1
         return tuple(outs)
     split = _split_buffer(grav_split, p.pos.device)
-    _launch(_library().force_fixed_h_grav, *args, split.data_ptr(),
-            *(outs[c].data_ptr() for c in range(5, 8)), *tail)
-    force_sums.fused_launches += 1
+    grav = (split.data_ptr(), *(outs[c].data_ptr() for c in range(5, 8)))
+    if var:
+        _launch(lib.force_var_h_grav, *args, *grav, *tail)
+        force_sums.var_fused_launches += 1
+    else:
+        _launch(lib.force_fixed_h_grav, *args, *grav, *tail)
+        force_sums.fused_launches += 1
     return tuple(outs[:5]) + (tuple(outs[5:]),)
 
 
 force_sums.launches = 0
 force_sums.fused_launches = 0
+force_sums.var_launches = 0
+force_sums.var_fused_launches = 0
 
 
 def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
                      grav_split=None):
-    """Plain PyTorch version of `force_fixed_h` (and, with `grav_split`,
-    of `force_fixed_h_grav`), on any device and dtype: the Pallas fixed-h
-    algebra (one dW, the 1e-30 guards, the rsqrt clamp, no explicit r > 0
-    guard) over the same ranges, in chunks."""
-    _require_fixed_h(cfg)
+    """Plain PyTorch version of `force_fixed_h` and `force_var_h` (and,
+    with `grav_split`, of their fused forms), on any device and dtype: the
+    Pallas algebra (one dW with fixed h; dW_i, dW_j, their mean and hbar
+    with variable h; the 1e-30 guards on pterm_j and rhobar, the rsqrt
+    clamp, no explicit r > 0 guard) over the same ranges, in chunks."""
     wg = cfg.window_group
     _groups(p.capacity, cfg, grid)
+    var = cfg.fixed_h is None
     m_all = torch.where(p.alive, p.mass, 0.0)
     pterm_all = p.pressure / torch.clamp(p.omega * p.rho * p.rho,
                                          min=1.0e-30)
+    if var:
+        inv_hj_all = 1.0 / p.h
+        inv_pi_hj4_all = (((1.0 / PI) * inv_hj_all * inv_hj_all)
+                          * (inv_hj_all * inv_hj_all))
     nc = 5 if grav_split is None else 8
     outs = torch.empty((nc, p.capacity), dtype=p.pos.dtype,
                        device=p.pos.device)
@@ -305,19 +353,30 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
         inv_r = torch.rsqrt(torch.clamp(r2, min=1.0e-12))
         r = r2 * inv_r
         dw = dw_shape(r * inv_hi) * inv_pi_hi4
+        if var:
+            dw_j = dw_shape(r * cj(inv_hj_all)) * cj(inv_pi_hj4_all)
+            dwbar = 0.5 * (dw + dw_j)
+            hbar = 0.5 * (hi + cj(p.h))
+        else:
+            dwbar, hbar = dw, hi
         vx = ri(p.vel[:, 0]) - cj(p.vel[:, 0])
         vy = ri(p.vel[:, 1]) - cj(p.vel[:, 1])
         vz = ri(p.vel[:, 2]) - cj(p.vel[:, 2])
         vdotr = vx * dxx + vy * dxy + vz * dxz
-        mu = hi * torch.clamp(vdotr, max=0.0) / (r2 + cfg.av_eps * hi * hi)
+        mu = (hbar * torch.clamp(vdotr, max=0.0)
+              / (r2 + cfg.av_eps * hbar * hbar))
         cbar = 0.5 * (ri(p.cs) + cj(p.cs))
         abar = 0.5 * (ri(p.alpha) + cj(p.alpha))
         rhobar = 0.5 * (rhoi + cj(p.rho))
         visc = ((-abar * cbar * mu + cfg.beta_factor * abar * mu * mu)
                 / torch.clamp(rhobar, min=1.0e-30))
         m = torch.where(mask, m_all[idx][:, None, :], 0.0)
-        coef = -m * ((pterm_i + cj(pterm_all) + visc) * dw) * inv_r
-        vdotgradw = vdotr * inv_r * dw
+        if var:
+            scal = pterm_i * dw + cj(pterm_all) * dw_j + visc * dwbar
+        else:  # dw_i == dw_j == dwbar
+            scal = (pterm_i + cj(pterm_all) + visc) * dw
+        coef = -m * scal * inv_r
+        vdotgradw = vdotr * inv_r * dwbar
         sums = [coef * dxx, coef * dxy, coef * dxz,
                 m * vdotgradw * (pterm_i + 0.5 * visc), m * vdotgradw]
         if grav_split is not None:
@@ -354,7 +413,7 @@ def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
     (`pm_gravity.pm_short_range`).  Counterpart of
     `pallas_grav_short_sums`.  CPU: the plain version; CUDA: the
     `grav_short` kernel."""
-    if pos.device.type == "cpu":
+    if _on_cpu(pos):
         return grav_short_sums_plain(pos, m, h, grid, cfg, grav_split)
     n = pos.shape[0]
     groups = _groups(n, cfg, grid)
@@ -406,14 +465,11 @@ def pair_eval(p: Particles, cfg: SimConfig, grid: SortedGrid,
     du, dalpha[, acc_grav [N, 3]]), the rates zero on dead rows; the last
     only with `grav_split` = (r_s, r_cut): the fused short-range gravity
     acceleration (cfg.grav_fuse_short)."""
-    rho_raw = density_sums(p, cfg, grid)
-    rho, _ = pairs.finalize_density(rho_raw, torch.zeros_like(rho_raw), p.h,
-                                    p.alive, p.mass)
-    p = eos_update(p.replace(rho=rho, omega=torch.ones_like(rho)), cfg)
+    p = eos_update(density(p, cfg, grid), cfg)
     out = force_sums(p, cfg, grid, grav_split)
     ax, ay, az, du, araw = out[:5]
     acc = torch.stack([ax, ay, az], dim=-1)
-    dalpha = pairs.alpha_rate(araw, rho, p.alpha, p.cs, p.h, cfg)
+    dalpha = pairs.alpha_rate(araw, p.rho, p.alpha, p.cs, p.h, cfg)
     alive = p.alive
     res = (p, torch.where(alive[:, None], acc, 0.0),
            torch.where(alive, du, 0.0), torch.where(alive, dalpha, 0.0))
@@ -430,6 +486,6 @@ def window_overflow(grid: SortedGrid, cfg: SimConfig) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=grid.key.device)
 
 
-__all__ = ["density_sums", "density_sums_plain", "force_sums",
+__all__ = ["density_sums", "density_sums_plain", "density", "force_sums",
            "force_sums_plain", "grav_short_sums", "grav_short_sums_plain",
            "pair_eval", "window_overflow", "SOURCE"]

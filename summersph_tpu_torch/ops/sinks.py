@@ -1,10 +1,17 @@
-"""Sink accretion and bounds culling.  Counterpart of `accrete` and
-`cull_bounds` in `summersph_tpu/ops/sinks.py`, whose docstring lists the
-deliberate corrections of the reference (nearest sink only, Euclidean
-distance, accreted angular momentum kept in `spin`).
+"""Sink accretion, creation, merging and bounds culling.  Counterpart of
+`summersph_tpu/ops/sinks.py`, whose docstrings list the deliberate
+corrections of the reference, all kept here:
+* accretion: nearest sink only, Euclidean distance, accreted angular
+  momentum kept in `spin`;
+* creation: every candidate is scanned, the densest eligible one wins, the
+  zero-mass dummy sink of a sinkless IC vetoes nothing, at most one sink is
+  created per call, and full slots are reported (`slots_full`);
+* merging (the reference's empty `check_sink_merger` stub, implemented):
+  sinks closer than `sink_merge_factor` x the smaller radius merge,
+  conserving mass, momentum and angular momentum.
 
-Sink creation and merging are later work: they run only with variable h
-or `cfg.sink_merge_factor > 0`, both of which the port refuses.
+Every function is a masked tensor op over the fixed capacities, with no
+device read: [S, N] for the gas, [S, S] for the sinks.
 """
 
 from __future__ import annotations
@@ -81,6 +88,119 @@ def accrete(p: Particles, s: Sinks) -> Tuple[Particles, Sinks]:
     return p, s
 
 
+def create_sinks(p: Particles, s: Sinks,
+                 cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
+    """Spawn a sink at the densest eligible particle, if any.
+
+    Eligible: live, code density m (eta / h)^3 above
+    `cfg.sink_create_density`, and not within radius_j + 2 h_i of a real
+    (live, massive) sink.  The new sink takes the first free slot, the
+    particle's position and velocity, radius 2 h and mass
+    `cfg.sink_create_mass`; the particle itself stays alive for the next
+    accretion pass.  Returns (sinks, slots_full), slots_full int32 1 when
+    a candidate found no free slot.
+    """
+    S = s.capacity
+    code_density = p.mass * (cfg.eta / p.h) ** 3
+    d2 = torch.zeros((S, p.capacity), dtype=p.pos.dtype, device=p.pos.device)
+    for c in range(3):
+        d = s.pos[:, c][:, None] - p.pos[:, c][None, :]
+        d2 = d2 + d * d
+    reach = s.radius[:, None] + 2.0 * p.h[None, :]
+    real = s.alive & (s.mass > 0)
+    near_sink = torch.any(real[:, None] & (d2 < reach * reach), dim=0)
+    eligible = (p.alive & (code_density > cfg.sink_create_density)
+                & ~near_sink)
+
+    has_any = torch.any(eligible)
+    # the first maximum, as jnp.argmax; garbage when !has_any, gated below
+    best = torch.argmax(torch.where(eligible, code_density,
+                                    -torch.inf)).reshape(1)
+    cand_pos = torch.index_select(p.pos, 0, best)[0]
+    cand_vel = torch.index_select(p.vel, 0, best)[0]
+    cand_h = torch.index_select(p.h, 0, best)[0]
+
+    free = ~s.alive
+    has_slot = torch.any(free)
+    slot = torch.argmax(free.to(torch.int32))   # the first free slot
+
+    write = ((torch.arange(S, device=p.pos.device) == slot)
+             & has_any & has_slot)
+    s = s.replace(
+        alive=s.alive | write,
+        pos=torch.where(write[:, None], cand_pos, s.pos),
+        vel=torch.where(write[:, None], cand_vel, s.vel),
+        acc=torch.where(write[:, None], 0.0, s.acc),
+        spin=torch.where(write[:, None], 0.0, s.spin),
+        mass=torch.where(write, cfg.sink_create_mass, s.mass),
+        radius=torch.where(write, 2.0 * cand_h, s.radius))
+    return s, (has_any & ~has_slot).to(torch.int32)
+
+
+def merge_sinks(s: Sinks, cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
+    """Merge real sinks closer than `cfg.sink_merge_factor` x
+    min(radius_i, radius_j).
+
+    Every sink points at its lowest-index partner (or itself) and
+    S.bit_length() rounds of pointer jumping collapse chains onto their
+    component minimum.  The root takes the combined mass, the centre of
+    mass position and velocity, the largest radius, and the total angular
+    momentum (spins plus the members' orbital L about the new centre);
+    absorbed slots die.  Returns (sinks, n_merged), the absorbed count.
+    """
+    S = s.capacity
+    dev = s.pos.device
+    real = s.alive & (s.mass > 0.0)
+    d2 = torch.zeros((S, S), dtype=s.pos.dtype, device=dev)
+    for c in range(3):
+        d = s.pos[:, c][:, None] - s.pos[:, c][None, :]
+        d2 = d2 + d * d
+    idx = torch.arange(S, dtype=torch.int64, device=dev)
+    rmin = torch.minimum(s.radius[:, None], s.radius[None, :])
+    thresh = cfg.sink_merge_factor * rmin
+    pair = (real[:, None] & real[None, :] & (d2 < thresh * thresh)
+            & (idx[:, None] != idx[None, :]))
+
+    partner_min = torch.amin(torch.where(pair, idx[None, :], S), dim=1)
+    target = torch.minimum(idx, partner_min)
+    for _ in range(max(1, S.bit_length())):
+        target = target[target]
+
+    absorbed = real & (target != idx)
+    # claim[r, j]: sink j (j == r included) contributes to root r
+    claim = real[None, :] & (idx[:, None] == target[None, :])
+    w = torch.where(claim, s.mass[None, :], 0.0)                 # [S, S]
+    msum = torch.sum(w, dim=1)
+    xsum = torch.einsum("rj,jc->rc", w, s.pos)
+    vsum = torch.einsum("rj,jc->rc", w, s.vel)
+
+    merged = msum > 0.0
+    inv = torch.where(merged, 1.0 / torch.where(merged, msum, 1.0), 0.0)
+    com_pos = xsum * inv[:, None]
+    com_vel = vsum * inv[:, None]
+
+    rel_x = s.pos[None, :, :] - com_pos[:, None, :]              # [S, S, 3]
+    rel_v = s.vel[None, :, :] - com_vel[:, None, :]
+    orb = torch.linalg.cross(rel_x, rel_v, dim=-1)
+    lsum = (torch.einsum("rj,jc->rc", claim.to(s.spin.dtype), s.spin)
+            + torch.sum(w[:, :, None] * orb, dim=1))
+    rad = torch.amax(torch.where(claim, s.radius[None, :], 0.0), dim=1)
+
+    root = real & ~absorbed
+    upd = root & merged
+    s = s.replace(
+        alive=s.alive & ~absorbed,
+        mass=torch.where(absorbed, 0.0, torch.where(upd, msum, s.mass)),
+        pos=torch.where(absorbed[:, None], PARK_POSITION,
+                        torch.where(upd[:, None], com_pos, s.pos)),
+        vel=torch.where(absorbed[:, None], 0.0,
+                        torch.where(upd[:, None], com_vel, s.vel)),
+        spin=torch.where(absorbed[:, None], 0.0,
+                         torch.where(upd[:, None], lsum, s.spin)),
+        radius=torch.where(absorbed, 0.0, torch.where(upd, rad, s.radius)))
+    return s, torch.sum(absorbed).to(torch.int32)
+
+
 def cull_bounds(p: Particles, s: Sinks,
                 cfg: SimConfig) -> Tuple[Particles, Sinks]:
     """Mask out particles and sinks outside the bounding box."""
@@ -103,4 +223,4 @@ def cull_bounds(p: Particles, s: Sinks,
     return p, s
 
 
-__all__ = ["accrete", "cull_bounds"]
+__all__ = ["accrete", "create_sinks", "merge_sinks", "cull_bounds"]

@@ -93,15 +93,16 @@ def test_import_leaves_jax_out():
 
 
 def test_entry_points_default_to_the_card():
-    """disc_ic, the state constructors and from_numpy put their tensors on
-    the card unless the caller names another device; without a card that
-    default raises instead of moving to the CPU."""
+    """disc_ic, collapse_ic, the state constructors and from_numpy put their
+    tensors on the card unless the caller names another device; without a
+    card that default raises instead of moving to the CPU."""
     import inspect
 
-    from summersph_tpu_torch.models.disc import disc_ic
+    from summersph_tpu_torch.models.disc import collapse_ic, disc_ic
 
-    for fn in (disc_ic, tstate.Particles.zeros, tstate.Particles.create,
-               tstate.Sinks.zeros, tstate.Sinks.create, tstate.from_numpy):
+    for fn in (disc_ic, collapse_ic, tstate.Particles.zeros,
+               tstate.Particles.create, tstate.Sinks.zeros,
+               tstate.Sinks.create, tstate.from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         st, _ = disc_ic(n=64)

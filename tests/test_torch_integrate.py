@@ -116,9 +116,10 @@ def test_health_and_diagnostics_after_ten_steps(runs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(gravity="pm", fixed_h=None), dict(fixed_h=None), dict(dt_bins=2),
-    dict(gravity="pm", dt_bins=2), dict(gravity="pm", neighbor_mode="dense"),
-    dict(neighbor_mode="grid"), dict(sink_merge_factor=1.0)])
+    dict(fixed_h=None, dt_bins=2), dict(fixed_h=None, neighbor_mode="grid"),
+    dict(dt_bins=2), dict(gravity="pm", dt_bins=2),
+    dict(gravity="pm", neighbor_mode="dense"), dict(neighbor_mode="grid"),
+    dict(sink_merge_factor=1.0, neighbor_mode="dense")])
 def test_unported_configurations_raise(change):
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     st = _ic(disc_ic, cfg)

@@ -8,8 +8,8 @@ engine in f64.  The JAX side only compares where it drops nothing
 (`window_overflow == 0`, `n_window_overflow == 0`).  Per-pid comparisons:
 the JAX sort is unstable.
 
-The test marked `gpu` holds each CUDA kernel against its plain version on
-the card; it skips without one.  It needs no JAX, so this file runs on a
+The tests marked `gpu` hold each CUDA kernel, fixed-h and variable-h,
+against its plain version on the card; they skip without one.  It needs no JAX, so this file runs on a
 GPU machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_pairs.py
@@ -123,31 +123,46 @@ def _small_disc(device, n=4096, seed=1):
     return p2, grid, cfg
 
 
+def _launch_counts():
+    return (cuda_pairs.density_sums.launches,
+            cuda_pairs.density_sums.var_launches,
+            cuda_pairs.force_sums.launches,
+            cuda_pairs.force_sums.fused_launches,
+            cuda_pairs.force_sums.var_launches,
+            cuda_pairs.force_sums.var_fused_launches,
+            cuda_pairs.grav_short_sums.launches)
+
+
 def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU each wrapper is its plain version, bit for bit, with no
+    launch: fixed h, and a variable-h config (fixed_h=None) through the
+    grad-h plain versions."""
     p2, grid, cfg = _small_disc("cpu")
-    before = (cuda_pairs.density_sums.launches,
-              cuda_pairs.force_sums.launches)
-    rho_raw = cuda_pairs.density_sums(p2, cfg, grid)
-    assert torch.equal(rho_raw, cuda_pairs.density_sums_plain(p2, cfg, grid))
-    p3, _, _, _ = cuda_pairs.pair_eval(p2, cfg, grid)
-    for a, b in zip(cuda_pairs.force_sums(p3, cfg, grid),
-                    cuda_pairs.force_sums_plain(p3, cfg, grid)):
-        assert torch.equal(a, b)
-    assert (cuda_pairs.density_sums.launches,
-            cuda_pairs.force_sums.launches) == before
+    before = _launch_counts()
+    split = (torch.tensor(0.9), torch.tensor(4.5 * 0.9))
+    for c in (cfg, cfg.with_(fixed_h=None)):
+        sums = cuda_pairs.density_sums(p2, c, grid)
+        for a, b in zip(sums, cuda_pairs.density_sums_plain(p2, c, grid)):
+            assert torch.equal(a, b)
+        assert bool((sums[1] != 0).any()) == (c.fixed_h is None)
+        p3, _, _, _ = cuda_pairs.pair_eval(p2, c, grid)
+        for sp in (None, split):
+            ours = cuda_pairs.force_sums(p3, c, grid, sp)
+            plain = cuda_pairs.force_sums_plain(p3, c, grid, sp)
+            for a, b in zip(ours[:5], plain[:5]):
+                assert torch.equal(a, b)
+    assert _launch_counts() == before
     over = cuda_pairs.window_overflow(grid, cfg)
     assert over.dtype == torch.int32 and int(over) == 0
-    with pytest.raises(NotImplementedError):
-        cuda_pairs.density_sums(p2, cfg.with_(fixed_h=None), grid)
 
 
 def test_plain_versions_chunk_without_changing_the_sums(monkeypatch):
     p2, grid, cfg = _small_disc("cpu", n=2048)
     p3, _, _, _ = cuda_pairs.pair_eval(p2, cfg, grid)
-    whole = (cuda_pairs.density_sums_plain(p2, cfg, grid),
+    whole = (*cuda_pairs.density_sums_plain(p2, cfg, grid),
              *cuda_pairs.force_sums_plain(p3, cfg, grid))
     monkeypatch.setattr(cuda_pairs, "PAIR_BUDGET", 1)  # one group a chunk
-    chunked = (cuda_pairs.density_sums_plain(p2, cfg, grid),
+    chunked = (*cuda_pairs.density_sums_plain(p2, cfg, grid),
                *cuda_pairs.force_sums_plain(p3, cfg, grid))
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
@@ -164,10 +179,11 @@ def cuda_device():
 def test_cuda_kernels_match_plain_versions(cuda_device):
     p2, grid, cfg = _small_disc(cuda_device, n=32768)
     n0 = cuda_pairs.density_sums.launches
-    rho_raw = cuda_pairs.density_sums(p2, cfg, grid)
+    rho_raw, omega_raw = cuda_pairs.density_sums(p2, cfg, grid)
     assert cuda_pairs.density_sums.launches == n0 + 1
     torch.testing.assert_close(
-        rho_raw, cuda_pairs.density_sums_plain(p2, cfg, grid), **RHO_TOL)
+        rho_raw, cuda_pairs.density_sums_plain(p2, cfg, grid)[0], **RHO_TOL)
+    assert not bool(omega_raw.any())
 
     p3, _, _, _ = cuda_pairs.pair_eval(p2, cfg, grid)
     n0 = cuda_pairs.force_sums.launches
@@ -196,7 +212,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     exact = cuda_pairs.force_sums_plain(
         p3.map(lambda a: a.double() if a.is_floating_point() else a), cfg,
         grid, tuple(v.double() for v in split))[5]
-    _hold_gravity(fused[5], plain[5], exact)
+    _hold_f64(("gx", "gy", "gz"), fused[5], plain[5], exact)
 
     # the short-range gravity kernel on the gravity sort
     from summersph_tpu_torch.ops import pm_gravity
@@ -212,16 +228,79 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     exact = cuda_pairs.grav_short_sums_plain(
         pos.double(), m.double(), h.double(), ggrid, gcfg,
         tuple(v.double() for v in split))
-    _hold_gravity(ours, plain, exact)
+    _hold_f64(("gx", "gy", "gz"), ours, plain, exact)
 
 
-def _hold_gravity(ours, plain, exact):
-    """The gravity sums' terms f(r/h) - S(r) nearly cancel, so float32
-    loses digits in the kernel and its plain version alike: hold the
-    kernel against the plain version in float64 within rtol 2e-4 and
-    atol 1e-5 x max|component| + twice the float32 plain version's own
-    largest error."""
-    for name, a, b, r in zip(("gx", "gy", "gz"), ours, plain, exact):
+def _collapse_sorted(device, n=32768):
+    """A 32,768-particle config-5 collapse sphere (h0 scaled as config 5
+    scales it) after one standalone h-iteration, which spreads h (the rim
+    grows it), sorted with the variable-h sort headroom."""
+    from summersph_tpu_torch.models.disc import collapse_ic
+    from summersph_tpu_torch.ops.smoothing import update_smoothing
+
+    h0 = (1_048_576 / n) ** (1.0 / 3.0)
+    cfg = SimConfig(fixed_h=None, neighbor_mode="sorted", window_group=32,
+                    cell_h_quantile=0.9, gravity="pm", grav_grid=128,
+                    gamma=1.1, max_length=1.5 * h0)
+    st, _ = collapse_ic(n=n, r_max=50.0, m_total=50.0, h0=h0, cfg=cfg,
+                        rotation="rigidbody", v_circ=4.2, seed=0,
+                        device=device)
+    p, _ = update_smoothing(st.particles, cfg)
+    p2, grid = sort_particles(p, cfg, h_pad=cfg.sort_h_pad)
+    return p2, grid, cfg
+
+
+def _f64(p):
+    return p.map(lambda a: a.double() if a.is_floating_point() else a)
+
+
+@pytest.mark.gpu
+def test_cuda_var_h_kernels_match_plain_versions(cuda_device):
+    """density_var_h, force_var_h and force_var_h_grav against their plain
+    versions on the card; each launch counted in its own attribute.  On
+    the rigidly rotating cloud div v ~ 0, so du and alpha_raw, like
+    Omega_raw (dW/dh of both signs) and the gravity sums, are sums that
+    cancel: they are held against the plain version in float64."""
+    p2, grid, cfg = _collapse_sorted(cuda_device)
+    n0 = _launch_counts()
+    ours = cuda_pairs.density_sums(p2, cfg, grid)
+    assert _launch_counts()[1] == n0[1] + 1
+    plain = cuda_pairs.density_sums_plain(p2, cfg, grid)
+    torch.testing.assert_close(ours[0], plain[0], **RHO_TOL)
+    exact = cuda_pairs.density_sums_plain(_f64(p2), cfg, grid)
+    _hold_f64(("omega_raw",), ours[1:], plain[1:], exact[1:])
+
+    p3, _, _, _ = cuda_pairs.pair_eval(p2, cfg, grid)
+    n0 = _launch_counts()
+    ours = cuda_pairs.force_sums(p3, cfg, grid)
+    assert _launch_counts()[4] == n0[4] + 1
+    plain = cuda_pairs.force_sums_plain(p3, cfg, grid)
+    exact = cuda_pairs.force_sums_plain(_f64(p3), cfg, grid)
+    _hold_f64(("ax", "ay", "az", "du", "araw"), ours, plain, exact)
+
+    from summersph_tpu_torch.ops import pm_gravity
+    r_s = pm_gravity.pm_geometry(p2, cfg)[2]
+    split = (r_s, cfg.effective_rcut_rs() * r_s)
+    n0 = _launch_counts()
+    fused = cuda_pairs.force_sums(p3, cfg, grid, split)
+    assert _launch_counts()[5] == n0[5] + 1
+    for a, b in zip(fused[:5], ours):
+        assert torch.equal(a, b)
+    plain = cuda_pairs.force_sums_plain(p3, cfg, grid, split)
+    exact = cuda_pairs.force_sums_plain(
+        _f64(p3), cfg, grid, tuple(v.double() for v in split))[5]
+    _hold_f64(("gx", "gy", "gz"), fused[5], plain[5], exact)
+    assert _launch_counts()[0] == n0[0] and _launch_counts()[2] == n0[2]
+
+
+def _hold_f64(names, ours, plain, exact):
+    """Sums whose terms nearly cancel (the gravity sums' f(r/h) - S(r);
+    du, alpha_raw and Omega_raw of a rotating cloud) lose digits in
+    float32 in the kernel and its plain version alike: hold the kernel
+    against the plain version in float64 within rtol 2e-4 and atol
+    1e-5 x max|component| + twice the float32 plain version's own largest
+    error."""
+    for name, a, b, r in zip(names, ours, plain, exact):
         floor = float((b.double() - r).abs().max())
         torch.testing.assert_close(
             a.double(), r, rtol=FORCE_TOL["rtol"],
