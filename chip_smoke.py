@@ -60,9 +60,38 @@ caught:
    conservation, particle-steps/s, peak memory, a layer breakdown, the
    busy share, and both variable-h kernels against their plain versions
    at these shapes;
-12. print the kernels' JSON line (with each kernel's bound: the larger of
+12. the seven gated kernels (block timesteps) at N = 131,072, on the
+   states of phases 3, 4 and 8 with the rows of the lowest quarter in x
+   active: each against its gated plain version (cancelling sums in
+   float64), equal to its ungated kernel bit for bit on the listed groups'
+   rows and 0 on the rest, and with a full worklist bit for bit
+   everywhere; each timed ungated, at the full and at the partial
+   worklist;
+13. block timesteps at full size on the disc: N = 1,048,576, gravity
+   'none', dt_bins = 4, prime + run_steps with the base dt at
+   min(8 x the tightest candidate, dt_max): the rung occupancy (at least
+   two rungs populated), the active share of rows and groups per substep,
+   8 launches of density_fixed_h_gated and of force_fixed_h_gated per base
+   step and none of any ungated kernel, the health checks, the layer spans
+   of every substep of one base step, the host waits the profiler counts
+   in a base step beside a global step's, the busy share, and the A/B:
+   the global engine (dt_bins = 1) and the binned engine from the same
+   primed state over the same simulated time, wall seconds per unit of
+   simulated time and mass, momentum, e_kin and rho_max of both legs
+   (printed; only conservation and the health counters are required);
+14. the fused forms with block timesteps at N = 131,072, dt_bins = 3: the
+   disc at grid 256 (force_fixed_h_grav_gated) and the collapse at grid
+   256 (force_var_h_grav_gated, density_var_h_gated), a few base steps
+   each, no ungated launch, no short-range launch, one mesh solve per
+   run_steps call;
+15. config 5 with block timesteps at N = 1,048,576, dt_bins = 3 (separate
+   TreePM, pm_every 4): 3 density_var_h_gated, 1 force_var_h_gated and 1
+   grav_short_gated launch per substep, one mesh solve per run_steps call,
+   the collapse checks, the layer spans, the busy share and the A/B;
+16. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
-   the pairs this run's data needs over 67 TFLOP/s) and, last,
+   the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
+   the rows and pairs of the listed groups only) and, last,
    {"ok": true, "device": ...}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
@@ -100,6 +129,16 @@ KERNELS = {
     "force_var_h": ("summersph_tpu/ops/pallas_pairs.py:699", 56 + 20),
     "force_var_h_grav": ("summersph_tpu/ops/pallas_pairs.py:699", 56 + 32),
 }
+# the gated forms (pallas_pairs.py _gate_plan :328 and the kernels' gated=)
+# move the same bytes per listed row
+KERNELS.update({
+    name + "_gated": (f"summersph_tpu/ops/pallas_pairs.py:{line}",
+                      KERNELS[name][1])
+    for name, line in (("density_fixed_h", 366), ("force_fixed_h", 606),
+                       ("force_fixed_h_grav", 606), ("grav_short", 881),
+                       ("density_var_h", 366), ("force_var_h", 606),
+                       ("force_var_h_grav", 606))})
+BINS_DISC, BINS_COLLAPSE = 4, 3     # dt_bins of the block-timestep paths
 
 
 def require(cond, msg):
@@ -107,29 +146,34 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def kernel_name(wrapper, attr):
+    """The CUDA entry point a launch count of `cuda_pairs` belongs to."""
+    gated = "_gated" if "gated_" in attr else ""
+    if wrapper.__name__ == "grav_short_sums":
+        return "grav_short" + gated
+    base = "density" if wrapper.__name__ == "density_sums" else "force"
+    return (base + ("_var_h" if attr.startswith("var_") else "_fixed_h")
+            + ("_grav" if "fused_" in attr else "") + gated)
+
+
 def launch_counts():
     from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
 
-    return {"density_fixed_h": cuda_pairs.density_sums.launches,
-            "force_fixed_h": cuda_pairs.force_sums.launches,
-            "force_fixed_h_grav": cuda_pairs.force_sums.fused_launches,
-            "grav_short": cuda_pairs.grav_short_sums.launches,
-            "density_var_h": cuda_pairs.density_sums.var_launches,
-            "force_var_h": cuda_pairs.force_sums.var_launches,
-            "force_var_h_grav": cuda_pairs.force_sums.var_fused_launches,
-            "mesh solves": pm_gravity.pm_long_range.solves}
+    counts = {kernel_name(w, a): getattr(w, a)
+              for w, a in cuda_pairs.launch_counters()}
+    counts["mesh solves"] = pm_gravity.pm_long_range.solves
+    return counts
+
+
+def nonzero(counts):
+    return {name: k for name, k in counts.items() if k}
 
 
 def reset_counts():
     from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
 
-    cuda_pairs.density_sums.launches = 0
-    cuda_pairs.density_sums.var_launches = 0
-    cuda_pairs.force_sums.launches = 0
-    cuda_pairs.force_sums.fused_launches = 0
-    cuda_pairs.force_sums.var_launches = 0
-    cuda_pairs.force_sums.var_fused_launches = 0
-    cuda_pairs.grav_short_sums.launches = 0
+    for wrapper, attr in cuda_pairs.launch_counters():
+        setattr(wrapper, attr, 0)
     pm_gravity.pm_long_range.solves = 0
 
 
@@ -277,11 +321,6 @@ def compare(name, kernel, plain, label, plain_reps=2, exact=None, **tol):
     (max_abs_err, kernel ms, plain ms).  With `exact` (the plain version
     in float64), the last outputs, as many as `exact()` gives, are sums
     that cancel and are held by `hold_exact`."""
-    def flat(out):
-        out = (out,) if not isinstance(out, tuple) else out
-        return [t for o in out for t in ((o,) if not isinstance(o, tuple)
-                                         else o)]
-
     k, p = flat(kernel()), flat(plain())
     q = flat(exact()) if exact is not None else []
     n_sph = len(k) - len(q)
@@ -296,21 +335,23 @@ def compare(name, kernel, plain, label, plain_reps=2, exact=None, **tol):
     return err, ms, plain_ms
 
 
-def count_pairs(pos, grid, wg, radius2, h=None, both=False):
+def count_pairs(pos, grid, wg, radius2, h=None, both=False, active=None):
     """Pairs of distinct particles inside each row's windows and key mask
     with r^2 < radius2: the pairs whose arithmetic the sums need.  With
     per-particle `h`, radius2 is a factor: r^2 < radius2 h_i^2, or with
-    `both` r^2 < radius2 max(h_i, h_j)^2 (the variable-h force pairs)."""
+    `both` r^2 < radius2 max(h_i, h_j)^2 (the variable-h force pairs).
+    With `active` = (worklist, count) the rows of the listed groups only."""
     import torch
     from summersph_tpu_torch.ops import cuda_pairs
 
     total = torch.zeros((), dtype=torch.int64, device=pos.device)
-    for g0, g1, idx, valid, off in cuda_pairs._candidate_chunks(grid, wg):
-        rows, mask, _, _, _, r2 = cuda_pairs._pair_geometry(
-            pos, grid, wg, g0, g1, idx, valid, off)
+    for rows, idx, valid, off in cuda_pairs._candidate_chunks(grid, wg,
+                                                              active):
+        mask, _, _, _, r2 = cuda_pairs._pair_geometry(pos, grid, rows, idx,
+                                                      valid, off)
         reach2 = radius2
         if h is not None:
-            hh = h[rows].reshape(g1 - g0, wg, 1)
+            hh = h[rows][:, :, None]
             if both:
                 hh = torch.maximum(hh, h[idx][:, None, :])
             reach2 = radius2 * hh * hh
@@ -318,82 +359,112 @@ def count_pairs(pos, grid, wg, radius2, h=None, both=False):
     return int(total)
 
 
-def bound(name, n_rows, groups, ops):
+def bound(name, n_rows, groups, ops, active=None):
     """(bound_ms, bound_by): the larger of the bytes the kernel must move
     over the card's memory rate and its FP32 operations over the FP32
-    peak."""
-    t_bytes = (KERNELS[name][1] * n_rows + 72 * groups) / PEAK_BYTES
+    peak.  With `active` = (worklist, count) the rows and windows of the
+    listed groups, and the worklist itself."""
+    extra = 0
+    if active is not None:
+        wg = n_rows // groups
+        extra = 4 * groups + 4
+        groups = int(active[1])
+        n_rows = groups * wg
+    t_bytes = (KERNELS[name][1] * n_rows + 72 * groups + extra) / PEAK_BYTES
     t_ops = ops / PEAK_FP32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
 
-def sph_pair_counts(p, grid, cfg):
+def sph_pair_counts(p, grid, cfg, active=None):
     """(density pairs, force pairs) the sums need: inside 2h with fixed
-    h; inside 2 h_i and inside 2 max(h_i, h_j) with variable h."""
+    h; inside 2 h_i and inside 2 max(h_i, h_j) with variable h.  With
+    `active` those of the listed groups' rows."""
     wg = cfg.window_group
     if cfg.fixed_h is not None:
-        n = count_pairs(p.pos, grid, wg, 4.0 * cfg.fixed_h ** 2)
+        n = count_pairs(p.pos, grid, wg, 4.0 * cfg.fixed_h ** 2,
+                        active=active)
         return n, n
-    return (count_pairs(p.pos, grid, wg, 4.0, h=p.h),
-            count_pairs(p.pos, grid, wg, 4.0, h=p.h, both=True))
+    return (count_pairs(p.pos, grid, wg, 4.0, h=p.h, active=active),
+            count_pairs(p.pos, grid, wg, 4.0, h=p.h, both=True,
+                        active=active))
 
 
-def sph_kernels(p_sorted, grid, cfg, label):
+def sph_kernels(p_sorted, grid, cfg, label, active=None):
     """The density and force kernels (fixed-h or variable-h by cfg) against
     their plain versions on one sorted state; returns {name: (err, ms,
     plain_ms, bound_ms, by)}.  With variable h, Omega_raw and the force
-    sums are held in float64 (`hold_exact`)."""
+    sums are held in float64 (`hold_exact`).  With `active` = (worklist,
+    count) the gated kernels against the gated plain versions, the bound
+    counting the listed groups only."""
     from summersph_tpu_torch.ops import cuda_pairs
 
     var = cfg.fixed_h is None
-    dname, fname = (("density_var_h", "force_var_h") if var
-                    else ("density_fixed_h", "force_fixed_h"))
+    gated = "_gated" if active is not None else ""
+    dname, fname = (("density_var_h" + gated, "force_var_h" + gated) if var
+                    else ("density_fixed_h" + gated,
+                          "force_fixed_h" + gated))
     p_dens = cuda_pairs.pair_eval(p_sorted, cfg, grid)[0]
     if var:
         p64, pd64 = f64(p_sorted), f64(p_dens)
         dens = compare(
-            dname, lambda: cuda_pairs.density_sums(p_sorted, cfg, grid),
-            lambda: cuda_pairs.density_sums_plain(p_sorted, cfg, grid),
+            dname,
+            lambda: cuda_pairs.density_sums(p_sorted, cfg, grid, active),
+            lambda: cuda_pairs.density_sums_plain(p_sorted, cfg, grid,
+                                                  active),
             label, rtol=RHO_RTOL, atol_rel=0.0,
-            exact=lambda: cuda_pairs.density_sums_plain(p64, cfg, grid)[1])
+            exact=lambda: cuda_pairs.density_sums_plain(p64, cfg, grid,
+                                                        active)[1])
         force = compare(
-            fname, lambda: cuda_pairs.force_sums(p_dens, cfg, grid),
-            lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid), label,
-            exact=lambda: cuda_pairs.force_sums_plain(pd64, cfg, grid))
+            fname,
+            lambda: cuda_pairs.force_sums(p_dens, cfg, grid, None, active),
+            lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid, None,
+                                                active), label,
+            exact=lambda: cuda_pairs.force_sums_plain(pd64, cfg, grid, None,
+                                                      active))
     else:
         dens = compare(
-            dname, lambda: cuda_pairs.density_sums(p_sorted, cfg, grid)[0],
-            lambda: cuda_pairs.density_sums_plain(p_sorted, cfg, grid)[0],
+            dname,
+            lambda: cuda_pairs.density_sums(p_sorted, cfg, grid, active)[0],
+            lambda: cuda_pairs.density_sums_plain(p_sorted, cfg, grid,
+                                                  active)[0],
             label, rtol=RHO_RTOL, atol_rel=0.0)
         force = compare(
-            fname, lambda: cuda_pairs.force_sums(p_dens, cfg, grid),
-            lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid), label)
+            fname,
+            lambda: cuda_pairs.force_sums(p_dens, cfg, grid, None, active),
+            lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid, None,
+                                                active), label)
     out = {dname: dens, fname: force}
-    n_dens, n_force = sph_pair_counts(p_sorted, grid, cfg)
+    n_dens, n_force = sph_pair_counts(p_sorted, grid, cfg, active)
     rows, groups = p_sorted.capacity, grid.starts.shape[0]
+    n_rows = rows if active is None else int(active[1]) * cfg.window_group
     if var:
-        print(f"[{label}] pairs inside 2h_i: {n_dens} ({n_dens / rows:.1f} "
-              f"per row); inside 2 max(h_i, h_j): {n_force} "
-              f"({n_force / rows:.1f} per row)", flush=True)
+        print(f"[{label}] pairs inside 2h_i: {n_dens} "
+              f"({n_dens / max(n_rows, 1):.1f} per row of {n_rows}); inside "
+              f"2 max(h_i, h_j): {n_force} "
+              f"({n_force / max(n_rows, 1):.1f} per row)", flush=True)
     else:
-        print(f"[{label}] pairs inside 2h: {n_dens} ({n_dens / rows:.1f} "
-              f"per row)", flush=True)
+        print(f"[{label}] pairs inside 2h: {n_dens} "
+              f"({n_dens / max(n_rows, 1):.1f} per row of {n_rows})",
+              flush=True)
     out[dname] += bound(dname, rows, groups,
-                        n_dens * (OPS_DENSITY_VAR if var else OPS_DENSITY))
+                        n_dens * (OPS_DENSITY_VAR if var else OPS_DENSITY),
+                        active)
     out[fname] += bound(fname, rows, groups,
-                        n_force * (OPS_FORCE_VAR if var else OPS_FORCE))
+                        n_force * (OPS_FORCE_VAR if var else OPS_FORCE),
+                        active)
     return out
 
 
-def fused_kernel(p_sorted, grid, cfg, label):
+def fused_kernel(p_sorted, grid, cfg, label, active=None):
     """The fused force kernel (fixed-h or variable-h by cfg) against its
     plain version at the step's split; returns (err, ms, plain_ms,
-    bound_ms, by)."""
+    bound_ms, by).  With `active` the gated kernel, as `sph_kernels`."""
     from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
 
     var = cfg.fixed_h is None
-    name = "force_var_h_grav" if var else "force_fixed_h_grav"
+    name = (("force_var_h_grav" if var else "force_fixed_h_grav")
+            + ("_gated" if active is not None else ""))
     p_dens = cuda_pairs.pair_eval(p_sorted, cfg, grid)[0]
     r_s = pm_gravity.pm_geometry(p_sorted, cfg)[2]
     split = (r_s, cfg.effective_rcut_rs() * r_s)
@@ -403,48 +474,64 @@ def fused_kernel(p_sorted, grid, cfg, label):
     # the gravity sums in float64; with variable h all eight
     first = 0 if var else 5
     res = compare(
-        name, lambda: cuda_pairs.force_sums(p_dens, cfg, grid, split),
-        lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid, split), label,
-        exact=lambda: cuda_pairs.force_sums_plain(p64, cfg, grid,
-                                                  split64)[first:])
-    n_sph = sph_pair_counts(p_sorted, grid, cfg)[1]
+        name,
+        lambda: cuda_pairs.force_sums(p_dens, cfg, grid, split, active),
+        lambda: cuda_pairs.force_sums_plain(p_dens, cfg, grid, split,
+                                            active), label,
+        exact=lambda: cuda_pairs.force_sums_plain(p64, cfg, grid, split64,
+                                                  active)[first:])
+    n_sph = sph_pair_counts(p_sorted, grid, cfg, active)[1]
     n_grav = count_pairs(p_sorted.pos, grid, cfg.window_group,
-                         split[1] ** 2)
+                         split[1] ** 2, active=active)
     print(f"[{label}] r_s {float(r_s):.4f} r_cut {float(split[1]):.4f} "
           f"SPH cell {float(grid.cell_size):.4f}; pairs inside "
           f"{'2 max(h_i, h_j)' if var else '2h'} {n_sph}, inside r_cut "
           f"{n_grav}", flush=True)
     return res + bound(name, p_sorted.capacity, grid.starts.shape[0],
                        n_sph * (OPS_FORCE_VAR if var else OPS_FORCE)
-                       + n_grav * (OPS_GRAV - OPS_GEOMETRY))
+                       + n_grav * (OPS_GRAV - OPS_GEOMETRY), active)
 
 
-def grav_kernel(p, cfg, label, plain_reps=2):
+def grav_kernel(p, cfg, label, plain_reps=2, active_rows=None):
     """The short-range gravity kernel against its plain version on the
     gravity sort of `p` at its mesh split; returns (err, ms, plain_ms,
-    bound_ms, by)."""
+    bound_ms, by).  With `active_rows` [N] bool (in p's order) the gated
+    kernel on the worklist of the gravity-sorted groups that hold such a
+    row, as `pm_short_range` builds it."""
+    import torch
     from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+    from summersph_tpu_torch.ops.sorted_grid import group_worklist
 
     r_s = pm_gravity.pm_geometry(p, cfg)[2]
-    pos, m, h, ggrid, _, split = pm_gravity.gravity_sort(p, cfg, r_s)
+    pos, m, h, ggrid, perm, split = pm_gravity.gravity_sort(p, cfg, r_s)
+    active, name = None, "grav_short"
+    if active_rows is not None:
+        pad = active_rows.new_zeros(perm.shape[0] - p.capacity)
+        active = group_worklist(torch.cat([active_rows, pad])[perm],
+                                cfg.window_group)
+        name = "grav_short_gated"
     ext = (ggrid.ends - ggrid.starts).sum(dim=1)
     print(f"[{label}] gravity windows: r_cut {float(split[1]):.4f}, "
           f"candidates per row mean {float(ext.float().mean()):.1f} max "
           f"{int(ext.max())}", flush=True)
     exact = (pos.double(), m.double(), h.double(), ggrid, cfg,
-             tuple(v.double() for v in split))
+             tuple(v.double() for v in split), active)
     res = compare(
-        "grav_short",
-        lambda: cuda_pairs.grav_short_sums(pos, m, h, ggrid, cfg, split),
+        name,
+        lambda: cuda_pairs.grav_short_sums(pos, m, h, ggrid, cfg, split,
+                                           active),
         lambda: cuda_pairs.grav_short_sums_plain(pos, m, h, ggrid, cfg,
-                                                 split),
+                                                 split, active),
         label, plain_reps=plain_reps,
         exact=lambda: cuda_pairs.grav_short_sums_plain(*exact))
-    n_grav = count_pairs(pos, ggrid, cfg.window_group, split[1] ** 2)
+    n_grav = count_pairs(pos, ggrid, cfg.window_group, split[1] ** 2,
+                         active=active)
+    n_rows = (p.capacity if active is None
+              else int(active[1]) * cfg.window_group)
     print(f"[{label}] pairs inside r_cut: {n_grav} "
-          f"({n_grav / p.capacity:.1f} per row)", flush=True)
-    return res + bound("grav_short", pos.shape[0], ggrid.starts.shape[0],
-                       n_grav * OPS_GRAV)
+          f"({n_grav / max(n_rows, 1):.1f} per row of {n_rows})", flush=True)
+    return res + bound(name, pos.shape[0], ggrid.starts.shape[0],
+                       n_grav * OPS_GRAV, active)
 
 
 def pm_vs_direct(state, label):
@@ -728,7 +815,7 @@ def run_path(state, cfg, expect, label, check):
     launches = launch_counts()
     print(f"[{label}] main path: {rate:.6e} particle-steps/s "
           f"({step_s * 1e3:.3f} ms/step, {STEPS} steps timed) launches "
-          f"{launches}; peak device memory "
+          f"{nonzero(launches)}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
           f"{time.perf_counter() - t0:.1f} s with prime and warm-up",
           flush=True)
@@ -786,6 +873,457 @@ def sink_creation(n, dev, label, steps=10):
     check_health(out, where=label)
     print(f"[{label}] {created} sinks created in {steps} steps, "
           f"{int(out.sinks.n_alive)} alive; counters {d}", flush=True)
+
+
+def flat(out):
+    """The tensors of a wrapper's result, nested tuples laid end to end."""
+    out = (out,) if not isinstance(out, tuple) else out
+    return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
+
+
+def gated_bitwise(name, call, act, wg, label):
+    """A gated kernel against its ungated form, bit for bit: `call(active)`
+    launches the wrapper.  With a full worklist every row must be equal;
+    with the worklist of `act` [N] bool the rows of the listed groups must
+    be equal and every other row must read 0.  Times the ungated kernel and
+    the gated one at both worklists; returns (ungated ms, full ms, partial
+    ms, share of groups listed)."""
+    import torch
+    from summersph_tpu_torch.ops.sorted_grid import group_worklist
+
+    full = group_worklist(torch.ones_like(act), wg)
+    part = group_worklist(act, wg)
+    groups = part[0].shape[0]
+    listed = torch.zeros(groups, dtype=torch.bool, device=act.device)
+    listed[part[0][:int(part[1])].long()] = True
+    rows = listed.repeat_interleave(wg)
+    require(0 < int(part[1]) < groups and bool(rows[act].all()),
+            f"{name}: worklist lists {int(part[1])} of {groups} groups")
+    ungated, at_full, at_part = (flat(call(a)) for a in (None, full, part))
+    torch.cuda.synchronize()
+    for c, (a, b, d) in enumerate(zip(ungated, at_full, at_part)):
+        require(torch.equal(a, b),
+                f"{name} output {c}: full worklist differs from ungated "
+                f"({label})")
+        require(torch.equal(a[rows], d[rows]),
+                f"{name} output {c}: listed rows differ from ungated "
+                f"({label})")
+        require(not bool(d[~rows].any()),
+                f"{name} output {c}: an unlisted row is not 0 ({label})")
+    ms = [cuda_ms(lambda a=a: call(a), 10) for a in (None, full, part)]
+    share = int(part[1]) / groups
+    print(f"[{label}] {name}: equal to the ungated kernel bit for bit (full "
+          f"worklist everywhere; {int(part[1])} of {groups} groups listed: "
+          f"their rows equal, the rest 0); ungated {ms[0]:.4f} ms, full "
+          f"worklist {ms[1]:.4f} ms, {share:.3f} of the groups {ms[2]:.4f} "
+          f"ms", flush=True)
+    return ms[0], ms[1], ms[2], share
+
+
+def lowest_quarter(pos, alive):
+    """[N] bool: the live rows whose x lies in the lowest quarter."""
+    import torch
+
+    return alive & (pos[:, 0] < torch.quantile(pos[alive, 0], 0.25))
+
+
+def gated_sph_checks(p_sorted, grid, cfg, label, fused=False, plain=True):
+    """Every gated SPH kernel of cfg's h mode on one sorted state, with the
+    lowest quarter in x active: bit for bit against the ungated kernel
+    (`gated_bitwise`), then, with `plain`, against the gated plain version
+    (`sph_kernels`, or `fused_kernel` with `fused`)."""
+    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+    from summersph_tpu_torch.ops.sorted_grid import group_worklist
+
+    var = "var_h" if cfg.fixed_h is None else "fixed_h"
+    wg = cfg.window_group
+    act = lowest_quarter(p_sorted.pos, p_sorted.alive)
+    p_dens = cuda_pairs.pair_eval(p_sorted, cfg, grid)[0]
+    gate = group_worklist(act, wg)
+    if fused:
+        r_s = pm_gravity.pm_geometry(p_sorted, cfg)[2]
+        split = (r_s, cfg.effective_rcut_rs() * r_s)
+        gated_bitwise(f"force_{var}_grav_gated",
+                      lambda a: cuda_pairs.force_sums(p_dens, cfg, grid,
+                                                      split, a),
+                      act, wg, label)
+        if plain:
+            fused_kernel(p_sorted, grid, cfg, label, gate)
+        return
+    gated_bitwise(f"density_{var}_gated",
+                  lambda a: cuda_pairs.density_sums(p_sorted, cfg, grid, a),
+                  act, wg, label)
+    gated_bitwise(f"force_{var}_gated",
+                  lambda a: cuda_pairs.force_sums(p_dens, cfg, grid, None, a),
+                  act, wg, label)
+    if plain:
+        sph_kernels(p_sorted, grid, cfg, label, gate)
+
+
+def gated_grav_check(p, cfg, label, plain=True):
+    """`grav_short_gated` on the gravity sort of `p`, the lowest quarter in
+    x active: bit for bit against `grav_short`, then, with `plain`,
+    against the gated plain version (`grav_kernel`)."""
+    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+
+    r_s = pm_gravity.pm_geometry(p, cfg)[2]
+    pos, m, h, ggrid, _, split = pm_gravity.gravity_sort(p, cfg, r_s)
+    gated_bitwise("grav_short_gated",
+                  lambda a: cuda_pairs.grav_short_sums(pos, m, h, ggrid, cfg,
+                                                       split, a),
+                  lowest_quarter(pos, m > 0.0), cfg.window_group, label)
+    if plain:
+        grav_kernel(p, cfg, label, active_rows=lowest_quarter(p.pos,
+                                                              p.alive))
+
+
+# ------------------------------------------------------- block timesteps
+
+def binned_start(state, cfg, bins, label):
+    """`state` primed under cfg.with_(dt_bins=bins), its dt raised to what
+    the rungs allow: min(2^(bins-1) x the tightest candidate, dt_max), as
+    scripts/blockstep_ab.py sets it.  Prints the rung occupancy.  Returns
+    (primed state, binned cfg, tightest candidate, populated rungs)."""
+    import torch
+    from summersph_tpu_torch.blockstep import assign_rungs
+    from summersph_tpu_torch.integrate import prime
+    from summersph_tpu_torch.ops.timestep import dt_candidates
+
+    cfg_b = cfg.with_(dt_bins=bins)
+    s0 = prime(state, cfg_b)
+    tight = float(torch.amin(dt_candidates(s0.particles, cfg_b)))
+    base = min((1 << (bins - 1)) * tight, cfg.dt_max)
+    s0 = s0.replace(dt=torch.as_tensor(base, dtype=s0.dt.dtype,
+                                       device=s0.dt.device))
+    rung = assign_rungs(s0.particles, cfg_b, s0.dt)
+    hist = torch.bincount(rung[s0.particles.alive], minlength=bins).tolist()
+    print(f"[{label}] tightest candidate {tight:.6e}, base dt {base:.6e} "
+          f"(dt_max {cfg.dt_max:g}), rung occupancy {hist}", flush=True)
+    return s0, cfg_b, tight, sum(1 for k in hist if k)
+
+
+def substep_gates(state, cfg):
+    """The sorted particles and grid of `state` with the rungs riding, and
+    for every substep j of a base step (act [N] bool, worklist) at these
+    positions (a run drifts between substeps; the shares barely move)."""
+    from summersph_tpu_torch.blockstep import assign_rungs, closing_mask
+    from summersph_tpu_torch.ops.sorted_grid import (group_worklist,
+                                                     sort_particles)
+
+    n_sub = 1 << (cfg.dt_bins - 1)
+    h_pad = 1.0 if cfg.fixed_h is not None else cfg.sort_h_pad
+    rung = assign_rungs(state.particles, cfg, state.dt)
+    p2, grid, rung = sort_particles(state.particles, cfg, h_pad=h_pad,
+                                    carry_derived=True, extra=rung)
+    gates = []
+    for j in range(n_sub):
+        act = p2.alive & closing_mask(rung, j, n_sub)
+        gates.append((act, group_worklist(act, cfg.window_group)))
+    return p2, grid, gates
+
+
+def pick_gate(gates, label):
+    """(act, worklist) of the substep that lists the fewest groups, but at
+    least one: the worklist the gated kernels are timed on at a path's
+    shapes."""
+    counts = [int(gate[1]) for _, gate in gates]
+    j = min((j for j, c in enumerate(counts) if c), key=counts.__getitem__)
+    print(f"[{label}] gated kernels at the worklist of substep {j}: "
+          f"{counts[j]} of {gates[j][1][0].shape[0]} groups", flush=True)
+    return gates[j]
+
+
+def print_shares(gates, n_alive, label):
+    groups = gates[0][1][0].shape[0]
+    print(f"[{label}] active share per substep (rows of the live, window "
+          f"groups): " + ", ".join(
+              f"j={j} {int(act.sum()) / n_alive:.4f} "
+              f"{int(gate[1]) / groups:.4f}"
+              for j, (act, gate) in enumerate(gates)), flush=True)
+
+
+def binned_path(state, cfg, bins, steps, per_substep, label, check,
+                min_rungs=1):
+    """One block-timestep path: prime, raise the base dt, reset the counts,
+    run_steps(steps[0]) to warm up and run_steps(steps[1]) timed (base
+    steps), read the counts.  `per_substep` gives the gated launches each
+    substep must make; every kernel it does not name, gated or not, must
+    count 0, and the mesh is solved once per run_steps call when gravity is
+    on (pm_every >= the base steps of a call).  Then `check`, the layer
+    spans of one base step, the host waits and the busy share.  Returns
+    (launches, primed state, final state, binned cfg, the primed state's
+    tightest candidate)."""
+    import torch
+    from summersph_tpu_torch.integrate import run_steps
+
+    n_sub = 1 << (bins - 1)
+    s0, cfg_b, tight, populated = binned_start(state, cfg, bins, label)
+    require(populated >= min_rungs,
+            f"{label}: {populated} rungs populated, need {min_rungs}")
+    n_alive = int(s0.particles.n_alive)
+    print_shares(substep_gates(s0, cfg_b)[2], n_alive, label)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    warm = run_steps(s0, cfg_b, steps[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_steps(warm, cfg_b, steps[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    substeps = n_sub * sum(steps)
+    expect = {name: 0 for name in launches}
+    expect.update({name: k * substeps for name, k in per_substep.items()})
+    expect["mesh solves"] = 2 if cfg.gravity != "none" else 0
+    for name, count in expect.items():
+        require(launches[name] == count,
+                f"{label}: {name} counted {launches[name]}, expected {count}")
+    advanced = float(out.t) - float(warm.t)
+    print(f"[{label}] block steps: {steps[1]} base steps of {n_sub} substeps "
+          f"timed, {wall / steps[1] * 1e3:.3f} ms per base step "
+          f"({wall / steps[1] / n_sub * 1e3:.3f} ms per substep), "
+          f"{int(out.particles.n_alive) * steps[1] * n_sub / wall:.6e} "
+          f"particle-substeps/s, simulated time {advanced:.6e} in "
+          f"{wall:.4f} s; launches {nonzero(launches)}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    check(s0, warm, out, label)
+    print_binned_layers(binned_layer_breakdown(out, cfg_b), label)
+    host_waits(out, cfg_b, cfg, label)
+    device_busy(out, cfg_b, 1, label)
+    return launches, s0, out, cfg_b, tight
+
+
+def binned_layer_breakdown(state, cfg):
+    """CUDA-event milliseconds of each layer of every substep of one base
+    step (the body of blockstep._step_binned, solving the mesh at the
+    first substep when gravity is on), on `state`.  Returns a list, one
+    {layer: ms} per substep."""
+    import torch
+    from summersph_tpu_torch.blockstep import (_drift, _kick_masked,
+                                               assign_rungs, closing_mask,
+                                               opening_mask, rung_dt)
+    from summersph_tpu_torch.integrate import (_count_nonfinite,
+                                               _coverage_stats)
+    from summersph_tpu_torch.ops import cuda_pairs, pairs, pm_gravity
+    from summersph_tpu_torch.ops.eos import eos_update
+    from summersph_tpu_torch.ops.gravity import sink_gravity
+    from summersph_tpu_torch.ops.sinks import (accrete, create_sinks,
+                                               cull_bounds, merge_sinks)
+    from summersph_tpu_torch.ops.smoothing import update_smoothing
+    from summersph_tpu_torch.ops.sorted_grid import (group_worklist,
+                                                     sort_particles)
+
+    grav = cfg.gravity in pm_gravity.PM_MODES
+    fuse = grav and cfg.grav_fuse_short
+    var = cfg.fixed_h is None
+    p, s, dt_base = state.particles, state.sinks, state.dt
+    dtype, cap0 = p.pos.dtype, p.capacity
+    n_sub = 1 << (cfg.dt_bins - 1)
+    delta = dt_base / n_sub
+    rung = assign_rungs(p, cfg, dt_base)
+    r_s_held = torch.zeros((), dtype=dtype, device=p.pos.device)
+    zero = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    per_substep = []
+    for j in range(n_sub):
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        mark("start")
+        p, s = _kick_masked(p, s, rung_dt(rung, dt_base, dtype),
+                            opening_mask(rung, j, n_sub), delta)
+        p, s = _drift(p, s, delta)
+        mark("rest")
+        p2, grid, rung = sort_particles(
+            p, cfg, h_pad=cfg.sort_h_pad if var else 1.0,
+            carry_derived=True, extra=rung)
+        mark("sort (carrying)")
+        act = p2.alive & closing_mask(rung, j, n_sub)
+        gate = group_worklist(act, cfg.window_group)
+        mark("worklist")
+        split = None
+        phase = 0 if j == 0 else 1
+        if fuse:
+            r_s = (pm_gravity.pm_geometry(p2, cfg)[2] if j == 0
+                   else r_s_held)
+            split = (r_s, cfg.effective_rcut_rs() * r_s)
+            mark("rest")
+        p2d = cuda_pairs.density(p2, cfg, grid, gate, act)
+        mark("gated density")
+        p2d = eos_update(p2d, cfg)
+        mark("EOS")
+        out = cuda_pairs.force_sums(p2d, cfg, grid, split, gate)
+        mark("gated fused force" if fuse else "gated force")
+        ax, ay, az, du, araw = out[:5]
+        live = p2d.alive & act
+        acc = torch.where(live[:, None], torch.stack([ax, ay, az], -1), 0.0)
+        du = torch.where(live, du, 0.0)
+        dalpha = torch.where(live, pairs.alpha_rate(
+            araw, p2d.rho, p2d.alpha, p2d.cs, p2d.h, cfg), 0.0)
+        mark("rest")
+        if grav:
+            acc_long, r_s_held = pm_gravity.pm_long_range_held(
+                p2d, cfg, phase, r_s_held, True)
+            p2d = p2d.replace(acc_ext=acc_long)
+            mark("far field (solved at j = 0, then held)")
+            if fuse:
+                acc = acc + acc_long + torch.where(
+                    live[:, None], torch.stack(out[5], -1), 0.0)
+            else:
+                acc_short, _ = pm_gravity.pm_short_range(
+                    p2d, cfg, r_s_held, active_rows=act)
+                mark("gravity sort + gated short range")
+                acc = acc + acc_long + acc_short
+        acc_gas_sink, acc_sink = sink_gravity(p2d, s)
+        mark("sink gravity")
+        s = s.replace(acc=acc_sink)
+        p2 = p2d.replace(
+            acc=torch.where(act[:, None], acc + acc_gas_sink, p2.acc),
+            du=torch.where(act, du, p2.du),
+            dalpha=torch.where(act, dalpha, p2.dalpha))
+        p2, s = _kick_masked(p2, s, rung_dt(rung, dt_base, dtype), act,
+                             delta)
+        mark("rest")
+        n_open = full = zero
+        if var:
+            p_h, n_open = update_smoothing(p2, cfg, grid=grid, active=gate,
+                                           act_mask=act)
+            p2 = p2.replace(h=torch.where(act, p_h.h, p2.h))
+            mark("gated h-iteration")
+            s, full = create_sinks(p2, s, cfg)
+        p2, s = accrete(p2, s)
+        if cfg.sink_merge_factor > 0.0:
+            s, _ = merge_sinks(s, cfg)
+        mark("create/accrete/merge" if var else "accrete")
+        p2, s = cull_bounds(p2, s, cfg)
+        _coverage_stats(cfg, grid, zero, n_open, _count_nonfinite(p2), full)
+        if p2.capacity != cap0:
+            p2 = p2.map(lambda a: a[:cap0])
+            rung = rung[:cap0]
+        p = p2
+        mark("rest")
+        torch.cuda.synchronize()
+        layers = {}
+        for i in range(1, len(marks)):
+            name = marks[i][0]
+            layers[name] = (layers.get(name, 0.0)
+                            + marks[i - 1][1].elapsed_time(marks[i][1]))
+        per_substep.append(layers)
+    return per_substep
+
+
+def print_binned_layers(per_substep, label):
+    for j, layers in enumerate(per_substep):
+        print(f"[{label}] substep {j} by layer (CUDA events, ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in layers.items())
+              + f"; sum {sum(layers.values()):.3f}", flush=True)
+    print(f"[{label}] base step, sum of spans: "
+          f"{sum(sum(d.values()) for d in per_substep):.3f} ms", flush=True)
+
+
+def host_waits(state, cfg_b, cfg_g, label):
+    """Calls that make the host wait for the card (`aten::item`,
+    `aten::_local_scalar_dense`, `cudaStreamSynchronize`), counted by
+    torch.profiler over one base step of the binned engine and over one
+    step of the global engine from the same state.  A substep is a step's
+    counterpart: a base step must count no more than its substeps times
+    the global step's count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from summersph_tpu_torch.integrate import run_steps
+
+    names = ("aten::item", "aten::_local_scalar_dense",
+             "cudaStreamSynchronize")
+    counts = {}
+    for leg, cfg in (("global step", cfg_g), ("base step", cfg_b)):
+        run_steps(state, cfg, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            run_steps(state, cfg, 1)
+        torch.cuda.synchronize()
+        counts[leg] = {e.key: e.count for e in prof.key_averages()
+                       if e.key in names}
+    n_sub = 1 << (cfg_b.dt_bins - 1)
+    print(f"[{label}] host waits (torch.profiler counts of {names}): one "
+          f"global step {counts['global step'] or 0}, one base step of "
+          f"{n_sub} substeps {counts['base step'] or 0}", flush=True)
+    require(sum(counts["base step"].values())
+            <= n_sub * sum(counts["global step"].values()),
+            f"{label}: a base step waits for the card: {counts}")
+
+
+def conserved(s0, out, label, leg):
+    """Total mass (live gas and sinks) of `out` against `s0` to 1e-5."""
+    def total(st):
+        p = st.particles
+        return float(p.mass[p.alive].double().sum()
+                     + st.sinks.mass[st.sinks.alive].double().sum())
+
+    m0, m1 = total(s0), total(out)
+    require(abs(m1 - m0) <= 1e-5 * m0,
+            f"{label} {leg}: total mass {m0} -> {m1}")
+    return m1
+
+
+def ab_legs(s0, cfg_b, tight, base_steps, label, counters):
+    """The A/B: from the primed state `s0` the binned engine (cfg_b, its
+    base dt pinned) takes `base_steps` base steps and the global engine
+    (dt_bins = 1, dt pinned at the tightest candidate or dt_max) as many
+    steps as reach the same simulated time; each leg after one untimed run
+    of the same length.  Prints wall seconds per unit of simulated time and
+    the physics of both legs; requires the total mass conserved to 1e-5 and
+    the health counters named in `counters` zero (None: all)."""
+    import torch
+    from summersph_tpu_torch import diagnostics
+    from summersph_tpu_torch.integrate import run_steps
+
+    base = float(s0.dt)
+    dt_g = min(tight, cfg_b.dt_max)
+    n_g = round(base_steps * base / dt_g)
+    dt_g = base_steps * base / n_g
+    legs = {}
+    for leg, cfg, dt, n in (
+            ("binned", cfg_b.with_(dt_min=base, dt_max=base), base,
+             base_steps),
+            ("global", cfg_b.with_(dt_bins=1, dt_min=dt_g, dt_max=dt_g),
+             dt_g, n_g),
+            ("global", None, None, None), ("binned", None, None, None)):
+        if cfg is None:     # second turn: time what the first turn warmed
+            cfg, st, n = legs[leg][:3]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_steps(st, cfg, n)
+            torch.cuda.synchronize()
+            legs[leg] += (time.perf_counter() - t0, out)
+            continue
+        st = s0.replace(dt=torch.as_tensor(dt, dtype=s0.dt.dtype,
+                                           device=s0.dt.device))
+        run_steps(st, cfg, n)
+        legs[leg] = (cfg, st, n)
+    rate = {}
+    for leg, (cfg, st, n, wall, out) in legs.items():
+        advanced = float(out.t) - float(st.t)
+        d = out.stats_dict()
+        bad = {k: v for k, v in d.items()
+               if v and (counters is None or k in counters)}
+        require(not bad, f"{label} {leg}: counters tripped: {d}")
+        mass = conserved(st, out, label, leg)
+        m = diagnostics.measure(out)
+        rate[leg] = wall / advanced
+        print(f"[{label}] A/B {leg}: {n} steps of dt {float(st.dt):.6e}, "
+              f"simulated {advanced:.6e} in {wall:.4f} s wall = "
+              f"{rate[leg]:.6e} s per unit of simulated time; total mass "
+              f"{mass:.7g}, momentum "
+              f"{[f'{v:.4e}' for v in m['momentum'].tolist()]}, e_kin "
+              f"{float(m['e_kin']):.6e}, rho_max {float(m['rho_max']):.6e}, "
+              f"n_gas {int(m['n_gas'])}, stats {d}", flush=True)
+    print(f"[{label}] A/B: the binned engine takes "
+          f"{rate['binned'] / rate['global']:.4f} x the global engine's wall "
+          f"time per unit of simulated time", flush=True)
 
 
 def main():
@@ -863,7 +1401,7 @@ def main():
     none_launches = launch_counts()
     print(f"[{label}] main path: {rate:.6e} particle-steps/s "
           f"({step_s * 1e3:.3f} ms/step, {STEPS} steps timed) "
-          f"launches {none_launches}", flush=True)
+          f"launches {nonzero(none_launches)}", flush=True)
     for name in ("density_fixed_h", "force_fixed_h"):
         require(none_launches[name] == 1 + 2 * STEPS,
                 f"{name} launched {none_launches[name]} times, expected "
@@ -950,7 +1488,86 @@ def main():
     results.update(sph_kernels(p2, grid, cfg, label))
     phase_done("11 (N=1048576, config 5)")
 
-    # -- phase 12: results
+    # -- phase 12: the seven gated kernels at N = 131,072
+    label = f"N={n_small} gated"
+    state, cfg = disc(n_small, dev)
+    gated_sph_checks(*sort_particles(state.particles, cfg), cfg, label)
+    gated_sph_checks(*sort_particles(st256.particles, cfg256), cfg256,
+                     f"{label} grid 256", fused=True)
+    gated_grav_check(st128.particles, cfg128, f"{label} grid 128")
+    state, cfg = config5(n_small, dev)
+    p, _ = update_smoothing(state.particles, cfg)
+    p2, grid = sort_particles(p, cfg, h_pad=cfg.sort_h_pad)
+    gated_sph_checks(p2, grid, cfg, f"{label} collapse")
+    gated_sph_checks(p2, grid, cfg.with_(grav_grid=256, grav_fuse_short=True,
+                                         pm_every=8),
+                     f"{label} collapse grid 256", fused=True)
+    phase_done("12 (N=131072, gated kernels)")
+
+    # -- phase 13: block timesteps on the disc at N = 1,048,576
+    label = f"N={n} block steps dt_bins {BINS_DISC}"
+    disc_b_launches, s0, out, cfg_b, tight = binned_path(
+        *disc(n, dev), BINS_DISC, (2, 5),
+        {"density_fixed_h_gated": 1, "force_fixed_h_gated": 1}, label,
+        check_run, min_rungs=2)
+    # the gated kernels at this path's shapes: the first substep's worklist
+    p2, grid, gates = substep_gates(out, cfg_b)
+    print_shares(gates, int(out.particles.n_alive), label)
+    results.update(sph_kernels(p2, grid, cfg_b, label,
+                               pick_gate(gates, label)[1]))
+    gated_sph_checks(p2, grid, cfg_b, f"{label}, lowest quarter in x",
+                     plain=False)
+    ab_legs(s0, cfg_b, tight, 4, label, None)
+    phase_done("13 (N=1048576, block steps on the disc)")
+
+    # -- phase 14: the fused forms with block timesteps at N = 131,072
+    label = f"N={n_small} block steps fused grid 256"
+    fused_b_launches, _, out, cfg_b, _ = binned_path(
+        *disc(n_small, dev, gravity="pm", grav_grid=256, pm_every=8),
+        BINS_COLLAPSE, (1, 2),
+        {"density_fixed_h_gated": 1, "force_fixed_h_grav_gated": 1}, label,
+        check_run)
+    p2, grid, gates = substep_gates(out, cfg_b)
+    results["force_fixed_h_grav_gated"] = fused_kernel(
+        p2, grid, cfg_b, label, pick_gate(gates, label)[1])
+    label = f"N={n_small} block steps collapse fused grid 256"
+    var_fused_b_launches, _, out, cfg_b, _ = binned_path(
+        *config5(n_small, dev, grav_grid=256, grav_fuse_short=True,
+                 pm_every=8), BINS_COLLAPSE, (1, 2),
+        {"density_var_h_gated": 3, "force_var_h_grav_gated": 1}, label,
+        check_collapse)
+    p2, grid, gates = substep_gates(out, cfg_b)
+    results["force_var_h_grav_gated"] = fused_kernel(
+        p2, grid, cfg_b, label, pick_gate(gates, label)[1])
+    phase_done("14 (N=131072, fused block steps)")
+
+    # -- phase 15: config 5 with block timesteps at N = 1,048,576
+    label = f"N={n} config 5 block steps dt_bins {BINS_COLLAPSE}"
+    c5_b_launches, s0, out, cfg_b, tight = binned_path(
+        *config5(n, dev), BINS_COLLAPSE, (1, 3),
+        {"density_var_h_gated": 3, "force_var_h_gated": 1,
+         "grav_short_gated": 1}, label, check_collapse)
+    p2, grid, gates = substep_gates(out, cfg_b)
+    print_shares(gates, int(out.particles.n_alive), label)
+    act, gate = pick_gate(gates, label)
+    results.update(sph_kernels(p2, grid, cfg_b, label, gate))
+    # grav_short_gated on the gravity sort, the same rows active
+    by_pid = torch.zeros(out.particles.capacity, dtype=torch.bool,
+                         device=dev)
+    by_pid[p2.pid[act].long()] = True
+    results["grav_short_gated"] = grav_kernel(
+        out.particles, cfg_b, label,
+        active_rows=by_pid[out.particles.pid.long()])
+    gated_sph_checks(p2, grid, cfg_b, f"{label}, lowest quarter in x",
+                     plain=False)
+    gated_grav_check(out.particles, cfg_b,
+                     f"{label}, lowest quarter in x", plain=False)
+    ab_legs(s0, cfg_b, tight, 2, label,
+            ("sph_window_overflow", "grav_window_overflow", "nonfinite",
+             "sink_slots_full"))
+    phase_done("15 (N=1048576, config 5 block steps)")
+
+    # -- phase 16: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],
                 "force_fixed_h": none_launches["force_fixed_h"],
                 "force_fixed_h_grav": fused_launches["force_fixed_h_grav"],
@@ -958,6 +1575,16 @@ def main():
                 "density_var_h": c5_launches["density_var_h"],
                 "force_var_h": c5_launches["force_var_h"],
                 "force_var_h_grav": var_fused_launches["force_var_h_grav"]}
+    for name, counted in (
+            ("density_fixed_h_gated", disc_b_launches),
+            ("force_fixed_h_gated", disc_b_launches),
+            ("force_fixed_h_grav_gated", fused_b_launches),
+            ("grav_short_gated", c5_b_launches),
+            ("density_var_h_gated", c5_b_launches),
+            ("force_var_h_gated", c5_b_launches),
+            ("force_var_h_grav_gated", var_fused_b_launches)):
+        launches[name] = counted[name]
+        require(counted[name] > 0, f"{name} was never launched on its path")
     from summersph_tpu_torch.ops import cuda_pairs
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": cuda_pairs.SOURCE,

@@ -6,7 +6,9 @@ NVIDIA H100: SFC sort -> hand-written CUDA density and force pair kernels
 EOS -> self-gravity (direct, or TreePM: the CIC mesh with torch.fft and
 the short-range CUDA kernel, or its form fused into the force kernel,
 with the far field optionally held for cfg.pm_every steps) -> sink
-gravity -> KDK leapfrog with the adaptive global timestep -> with
+gravity -> KDK leapfrog with the adaptive global timestep, or with
+cfg.dt_bins > 1 block timesteps on power-of-two rungs, whose substeps run
+the pair kernels in their gated forms on the closing rows only -> with
 variable h the Newton h-iteration and sink creation -> sink accretion,
 merging and bounds culling.  Entry points put their state on the card unless the
 caller asks for the CPU; on the CPU every kernel is replaced by its plain
@@ -15,11 +17,12 @@ PyTorch version.  The package imports torch and numpy, never jax.
 
 from .config import SimConfig
 from .integrate import force_eval, prime, run_steps, step
+from .blockstep import step_binned
 from .state import Particles, SimState, Sinks, from_numpy, to_numpy
 
 __version__ = "0.1.0"
 
 __all__ = [
     "SimConfig", "Particles", "Sinks", "SimState", "to_numpy", "from_numpy",
-    "force_eval", "prime", "step", "run_steps",
+    "force_eval", "prime", "step", "run_steps", "step_binned",
 ]

@@ -55,7 +55,7 @@ class SimConfig:
     dt_grow: float = 1.5
     dt_shrink: float = 0.5
     dt_bound_candidate: bool = True
-    dt_bins: int = 1                    # > 1 not ported yet
+    dt_bins: int = 1                    # > 1: block timesteps
 
     # --- output cadence
     n_saves: int = 1000

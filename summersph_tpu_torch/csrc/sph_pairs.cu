@@ -13,9 +13,23 @@
 //   force_var_h         <- B2 with fixed_h=False: two gradients dW(h_i),
 //                          dW(h_j), their mean, and hbar in the viscosity
 //   force_var_h_grav    <- B2 with fixed_h=False and fuse_grav
-//   grav_short          <- _grav_kernel / _grav_body (B3), ungated
+//   grav_short          <- _grav_kernel / _grav_body (B3)
+//   <name>_gated        <- each of the seven in its gated form (_gate_plan,
+//                          block timesteps): only the window groups on a
+//                          worklist are computed
 // The variable-h forms are template instantiations of the fixed-h kernels
-// (VARH); the fixed-h instantiations compile to the code they had.
+// (VARH), the gated forms of the ungated ones (GATED); the fixed-h and the
+// ungated instantiations compile to the code they had.
+//
+// Gating: the caller passes worklist [groups] (ids of the window groups
+// that hold an active row, compacted to the front) and count [1], both on
+// the device.  The launch still has `groups` blocks; block b reads count[0]
+// itself, returns at once when b >= count[0], and otherwise owns group
+// worklist[b].  The host never learns the count, so a substep does not
+// wait for the card; an entry past the count is never read as a group.
+// Rows of groups that are not listed are not written (the wrappers hand in
+// zero-filled outputs).  Only rows are gated, never columns: an active row
+// sums over every candidate, active or not.
 //
 // What bounds them: FP32 pair arithmetic.  Each row tests about 10^3
 // candidates (9 windows of ~100 candidates on the N = 1,048,576 disc; a
@@ -67,6 +81,22 @@ constexpr float G_GRAV = 39.47841760435743f;  // utils/units.py: 4 pi^2
 
 __device__ __forceinline__ int plane_offset(int o) {
   return (o / 3 - 1) * KX + (o % 3 - 1) * KY;
+}
+
+// The window group this block owns, or -1 when it has none.  Ungated:
+// group blockIdx.x.  GATED: worklist[blockIdx.x] while blockIdx.x <
+// count[0] (the whole block takes the same branch, so returning on -1
+// skips no barrier another thread waits at).
+template <bool GATED>
+__device__ __forceinline__ int owned_group(const int* __restrict__ worklist,
+                                           const int* __restrict__ count) {
+  if constexpr (GATED) {
+    if ((int)blockIdx.x >= count[0]) return -1;
+    const int g = worklist[blockIdx.x];
+    return (unsigned)g < gridDim.x ? g : -1;
+  } else {
+    return blockIdx.x;
+  }
 }
 
 __device__ __forceinline__ float w_shape(float q) {
@@ -137,17 +167,21 @@ struct GravSplit {
 // r_ij > 0 (the self term is added by pairs.finalize_density).  VARH also
 // writes omega_raw[i] = sum_j m_j dW/dh(r_ij, h_i), whose shape is
 // -(3 w(q) + q w'(q)) / (pi h_i^4) (pallas_pairs.py _density_body).
-template <bool VARH>
+template <bool VARH, bool GATED>
 __global__ void density_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ z, const float* __restrict__ m,
     const float* __restrict__ h, const int* __restrict__ key,
     const int* __restrict__ starts, const int* __restrict__ ends,
-    float* __restrict__ rho_raw, float* __restrict__ omega_raw, int n) {
+    float* __restrict__ rho_raw, float* __restrict__ omega_raw, int n,
+    const int* __restrict__ worklist, const int* __restrict__ count) {
   __shared__ float sx[TILE], sy[TILE], sz[TILE], sm[TILE];
   __shared__ int sk[TILE];
 
-  const int g = blockIdx.x;
+  const int g = owned_group<GATED>(worklist, count);
+  if constexpr (GATED) {
+    if (g < 0) return;
+  }
   const int i = g * blockDim.x + threadIdx.x;
   const bool row = i < n;
   const float xi = row ? x[i] : 0.0f;
@@ -218,7 +252,7 @@ __global__ void density_kernel(
 // integrate.py reports in the grav_window_overflow slot).  Without FUSE
 // the split and gravity outputs are unused and the code is the plain
 // force kernel's; without VARH it is the fixed-h kernel's.
-template <bool VARH, bool FUSE>
+template <bool VARH, bool FUSE, bool GATED>
 __global__ void force_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ z, const float* __restrict__ vx,
@@ -232,7 +266,8 @@ __global__ void force_kernel(
     float* __restrict__ out_az, float* __restrict__ out_du,
     float* __restrict__ out_araw, const float* __restrict__ split,
     float* __restrict__ out_gx, float* __restrict__ out_gy,
-    float* __restrict__ out_gz, int n, float av_eps, float beta_factor) {
+    float* __restrict__ out_gz, int n, float av_eps, float beta_factor,
+    const int* __restrict__ worklist, const int* __restrict__ count) {
   constexpr int VT = VARH ? TILE : 1;
   __shared__ float sx[TILE], sy[TILE], sz[TILE];
   __shared__ float svx[TILE], svy[TILE], svz[TILE];
@@ -240,7 +275,10 @@ __global__ void force_kernel(
   __shared__ int sk[TILE];
   __shared__ float sh[VT], sinv_h[VT], sinv_pi_h4[VT], ssup2[VT];
 
-  const int g = blockIdx.x;
+  const int g = owned_group<GATED>(worklist, count);
+  if constexpr (GATED) {
+    if (g < 0) return;
+  }
   const int i = g * blockDim.x + threadIdx.x;
   const bool row = i < n;
   const float xi = row ? x[i] : 0.0f;
@@ -395,17 +433,22 @@ __global__ void force_kernel(
 // (gx, gy, gz)[i] = sum_j -G m_j [f(r_ij / h_i) - S(r_ij)] r_ij / r_ij^3
 // over 0 < r_ij < r_cut: the TreePM short-range complement, on the
 // gravity sort (cells r_cut wide, ops/pm_gravity.py pm_short_range).
+template <bool GATED>
 __global__ void grav_short_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ z, const float* __restrict__ m,
     const float* __restrict__ h, const int* __restrict__ key,
     const int* __restrict__ starts, const int* __restrict__ ends,
     const float* __restrict__ split, float* __restrict__ out_gx,
-    float* __restrict__ out_gy, float* __restrict__ out_gz, int n) {
+    float* __restrict__ out_gy, float* __restrict__ out_gz, int n,
+    const int* __restrict__ worklist, const int* __restrict__ count) {
   __shared__ float sx[TILE], sy[TILE], sz[TILE], sm[TILE];
   __shared__ int sk[TILE];
 
-  const int g = blockIdx.x;
+  const int g = owned_group<GATED>(worklist, count);
+  if constexpr (GATED) {
+    if (g < 0) return;
+  }
   const int i = g * blockDim.x + threadIdx.x;
   const bool row = i < n;
   const float xi = row ? x[i] : 0.0f;
@@ -456,23 +499,56 @@ __global__ void grav_short_kernel(
   }
 }
 
-// One launch of force_kernel<VARH, FUSE>: a block per window group.
-template <bool VARH, bool FUSE>
-int launch_force(const float* x, const float* y, const float* z,
-                 const float* vx, const float* vy, const float* vz,
-                 const float* m, const float* h, const int* key,
-                 const float* pres, const float* rho, const float* omega,
-                 const float* cs, const float* alpha, const int* starts,
-                 const int* ends, float* ax, float* ay, float* az, float* du,
-                 float* araw, const float* split, float* gx, float* gy,
-                 float* gz, int n, int wg, float av_eps, float beta_factor,
+// The launchers: a block per window group, gated or not (GATED launches
+// the same grid; see the note on gating at the top).
+#define SPH_GEOMETRY_PARAMS                                                  \
+  const float *x, const float *y, const float *z, const float *m,           \
+      const float *h, const int *key, const int *starts, const int *ends
+#define SPH_GEOMETRY_ARGS x, y, z, m, h, key, starts, ends
+#define SPH_FORCE_PARAMS                                                     \
+  const float *x, const float *y, const float *z, const float *vx,          \
+      const float *vy, const float *vz, const float *m, const float *h,     \
+      const int *key, const float *pres, const float *rho,                  \
+      const float *omega, const float *cs, const float *alpha,              \
+      const int *starts, const int *ends, float *ax, float *ay, float *az,  \
+      float *du, float *araw
+#define SPH_FORCE_ARGS                                                       \
+  x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,      \
+      ends, ax, ay, az, du, araw
+#define SPH_GRAV_OUT_PARAMS const float *split, float *gx, float *gy, float *gz
+#define SPH_GATE_PARAMS const int *worklist, const int *count
+
+template <bool VARH, bool GATED>
+int launch_density(SPH_GEOMETRY_PARAMS, float* rho_raw, float* omega_raw,
+                   SPH_GATE_PARAMS, int n, int wg, void* stream) {
+  const int groups = n / wg;
+  if (groups > 0) {
+    density_kernel<VARH, GATED><<<groups, wg, 0, (cudaStream_t)stream>>>(
+        SPH_GEOMETRY_ARGS, rho_raw, omega_raw, n, worklist, count);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool VARH, bool FUSE, bool GATED>
+int launch_force(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
+                 int n, int wg, float av_eps, float beta_factor,
                  void* stream) {
   const int groups = n / wg;
   if (groups > 0) {
-    force_kernel<VARH, FUSE><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha,
-        starts, ends, ax, ay, az, du, araw, split, gx, gy, gz, n, av_eps,
-        beta_factor);
+    force_kernel<VARH, FUSE, GATED><<<groups, wg, 0, (cudaStream_t)stream>>>(
+        SPH_FORCE_ARGS, split, gx, gy, gz, n, av_eps, beta_factor, worklist,
+        count);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool GATED>
+int launch_grav_short(SPH_GEOMETRY_PARAMS, SPH_GRAV_OUT_PARAMS,
+                      SPH_GATE_PARAMS, int n, int wg, void* stream) {
+  const int groups = n / wg;
+  if (groups > 0) {
+    grav_short_kernel<GATED><<<groups, wg, 0, (cudaStream_t)stream>>>(
+        SPH_GEOMETRY_ARGS, split, gx, gy, gz, n, worklist, count);
   }
   return (int)cudaGetLastError();
 }
@@ -481,107 +557,109 @@ int launch_force(const float* x, const float* y, const float* z,
 
 extern "C" {
 
-// n rows in n / wg window groups; starts/ends are [n / wg, 9].
-int density_fixed_h(const float* x, const float* y, const float* z,
-                    const float* m, const float* h, const int* key,
-                    const int* starts, const int* ends, float* rho_raw,
-                    int n, int wg, void* stream) {
-  const int groups = n / wg;
-  if (groups > 0) {
-    density_kernel<false><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        x, y, z, m, h, key, starts, ends, rho_raw, nullptr, n);
-  }
-  return (int)cudaGetLastError();
+// n rows in n / wg window groups; starts/ends are [n / wg, 9].  Every
+// `_gated` entry point takes its ungated form's arguments, then worklist
+// [n / wg] and count [1] (device pointers), then n, wg, ..., stream.
+
+int density_fixed_h(SPH_GEOMETRY_PARAMS, float* rho_raw, int n, int wg,
+                    void* stream) {
+  return launch_density<false, false>(SPH_GEOMETRY_ARGS, rho_raw, nullptr,
+                                      nullptr, nullptr, n, wg, stream);
+}
+
+int density_fixed_h_gated(SPH_GEOMETRY_PARAMS, float* rho_raw,
+                          SPH_GATE_PARAMS, int n, int wg, void* stream) {
+  return launch_density<false, true>(SPH_GEOMETRY_ARGS, rho_raw, nullptr,
+                                     worklist, count, n, wg, stream);
 }
 
 // density_fixed_h plus the grad-h sums omega_raw (variable h).
-int density_var_h(const float* x, const float* y, const float* z,
-                  const float* m, const float* h, const int* key,
-                  const int* starts, const int* ends, float* rho_raw,
-                  float* omega_raw, int n, int wg, void* stream) {
-  const int groups = n / wg;
-  if (groups > 0) {
-    density_kernel<true><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        x, y, z, m, h, key, starts, ends, rho_raw, omega_raw, n);
-  }
-  return (int)cudaGetLastError();
+int density_var_h(SPH_GEOMETRY_PARAMS, float* rho_raw, float* omega_raw,
+                  int n, int wg, void* stream) {
+  return launch_density<true, false>(SPH_GEOMETRY_ARGS, rho_raw, omega_raw,
+                                     nullptr, nullptr, n, wg, stream);
 }
 
-int force_fixed_h(const float* x, const float* y, const float* z,
-                  const float* vx, const float* vy, const float* vz,
-                  const float* m, const float* h, const int* key,
-                  const float* pres, const float* rho, const float* omega,
-                  const float* cs, const float* alpha, const int* starts,
-                  const int* ends, float* ax, float* ay, float* az,
-                  float* du, float* araw, int n, int wg, float av_eps,
+int density_var_h_gated(SPH_GEOMETRY_PARAMS, float* rho_raw,
+                        float* omega_raw, SPH_GATE_PARAMS, int n, int wg,
+                        void* stream) {
+  return launch_density<true, true>(SPH_GEOMETRY_ARGS, rho_raw, omega_raw,
+                                    worklist, count, n, wg, stream);
+}
+
+int force_fixed_h(SPH_FORCE_PARAMS, int n, int wg, float av_eps,
                   float beta_factor, void* stream) {
-  return launch_force<false, false>(
-      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
-      ends, ax, ay, az, du, araw, nullptr, nullptr, nullptr, nullptr, n, wg,
-      av_eps, beta_factor, stream);
+  return launch_force<false, false, false>(
+      SPH_FORCE_ARGS, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      n, wg, av_eps, beta_factor, stream);
+}
+
+int force_fixed_h_gated(SPH_FORCE_PARAMS, SPH_GATE_PARAMS, int n, int wg,
+                        float av_eps, float beta_factor, void* stream) {
+  return launch_force<false, false, true>(
+      SPH_FORCE_ARGS, nullptr, nullptr, nullptr, nullptr, worklist, count, n,
+      wg, av_eps, beta_factor, stream);
 }
 
 // force_fixed_h plus the short-range gravity sums gx, gy, gz; split is
 // the device buffer {r_s, r_cut}.
-int force_fixed_h_grav(const float* x, const float* y, const float* z,
-                       const float* vx, const float* vy, const float* vz,
-                       const float* m, const float* h, const int* key,
-                       const float* pres, const float* rho,
-                       const float* omega, const float* cs,
-                       const float* alpha, const int* starts,
-                       const int* ends, float* ax, float* ay, float* az,
-                       float* du, float* araw, const float* split, float* gx,
-                       float* gy, float* gz, int n, int wg, float av_eps,
-                       float beta_factor, void* stream) {
-  return launch_force<false, true>(
-      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
-      ends, ax, ay, az, du, araw, split, gx, gy, gz, n, wg, av_eps,
+int force_fixed_h_grav(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
+                       float av_eps, float beta_factor, void* stream) {
+  return launch_force<false, true, false>(
+      SPH_FORCE_ARGS, split, gx, gy, gz, nullptr, nullptr, n, wg, av_eps,
       beta_factor, stream);
 }
 
-// The variable-h forms of force_fixed_h and force_fixed_h_grav, with the
-// same arguments.
-int force_var_h(const float* x, const float* y, const float* z,
-                const float* vx, const float* vy, const float* vz,
-                const float* m, const float* h, const int* key,
-                const float* pres, const float* rho, const float* omega,
-                const float* cs, const float* alpha, const int* starts,
-                const int* ends, float* ax, float* ay, float* az, float* du,
-                float* araw, int n, int wg, float av_eps, float beta_factor,
-                void* stream) {
-  return launch_force<true, false>(
-      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
-      ends, ax, ay, az, du, araw, nullptr, nullptr, nullptr, nullptr, n, wg,
-      av_eps, beta_factor, stream);
+int force_fixed_h_grav_gated(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS,
+                             SPH_GATE_PARAMS, int n, int wg, float av_eps,
+                             float beta_factor, void* stream) {
+  return launch_force<false, true, true>(
+      SPH_FORCE_ARGS, split, gx, gy, gz, worklist, count, n, wg, av_eps,
+      beta_factor, stream);
 }
 
-int force_var_h_grav(const float* x, const float* y, const float* z,
-                     const float* vx, const float* vy, const float* vz,
-                     const float* m, const float* h, const int* key,
-                     const float* pres, const float* rho, const float* omega,
-                     const float* cs, const float* alpha, const int* starts,
-                     const int* ends, float* ax, float* ay, float* az,
-                     float* du, float* araw, const float* split, float* gx,
-                     float* gy, float* gz, int n, int wg, float av_eps,
-                     float beta_factor, void* stream) {
-  return launch_force<true, true>(
-      x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,
-      ends, ax, ay, az, du, araw, split, gx, gy, gz, n, wg, av_eps,
+// The variable-h forms of the four entry points above, with the same
+// arguments.
+int force_var_h(SPH_FORCE_PARAMS, int n, int wg, float av_eps,
+                float beta_factor, void* stream) {
+  return launch_force<true, false, false>(
+      SPH_FORCE_ARGS, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      n, wg, av_eps, beta_factor, stream);
+}
+
+int force_var_h_gated(SPH_FORCE_PARAMS, SPH_GATE_PARAMS, int n, int wg,
+                      float av_eps, float beta_factor, void* stream) {
+  return launch_force<true, false, true>(
+      SPH_FORCE_ARGS, nullptr, nullptr, nullptr, nullptr, worklist, count, n,
+      wg, av_eps, beta_factor, stream);
+}
+
+int force_var_h_grav(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
+                     float av_eps, float beta_factor, void* stream) {
+  return launch_force<true, true, false>(
+      SPH_FORCE_ARGS, split, gx, gy, gz, nullptr, nullptr, n, wg, av_eps,
+      beta_factor, stream);
+}
+
+int force_var_h_grav_gated(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS,
+                           SPH_GATE_PARAMS, int n, int wg, float av_eps,
+                           float beta_factor, void* stream) {
+  return launch_force<true, true, true>(
+      SPH_FORCE_ARGS, split, gx, gy, gz, worklist, count, n, wg, av_eps,
       beta_factor, stream);
 }
 
 // Short-range gravity sums on the gravity sort; split is {r_s, r_cut}.
-int grav_short(const float* x, const float* y, const float* z,
-               const float* m, const float* h, const int* key,
-               const int* starts, const int* ends, const float* split,
-               float* gx, float* gy, float* gz, int n, int wg,
+int grav_short(SPH_GEOMETRY_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
                void* stream) {
-  const int groups = n / wg;
-  if (groups > 0) {
-    grav_short_kernel<<<groups, wg, 0, (cudaStream_t)stream>>>(
-        x, y, z, m, h, key, starts, ends, split, gx, gy, gz, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_grav_short<false>(SPH_GEOMETRY_ARGS, split, gx, gy, gz,
+                                  nullptr, nullptr, n, wg, stream);
+}
+
+int grav_short_gated(SPH_GEOMETRY_PARAMS, SPH_GRAV_OUT_PARAMS,
+                     SPH_GATE_PARAMS, int n, int wg, void* stream) {
+  return launch_grav_short<true>(SPH_GEOMETRY_ARGS, split, gx, gy, gz,
+                                 worklist, count, n, wg, stream);
 }
 
 }  // extern "C"

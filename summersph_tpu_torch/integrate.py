@@ -13,6 +13,9 @@ Counterpart of `summersph_tpu/integrate.py`.  One step:
     [variable h: h-iteration on the step's sort ; sink creation]
     sink accretion ; [sink merging] ; bounds cull ; health counters
 
+With `cfg.dt_bins > 1` `run_steps` advances by base steps of the
+block-timestep engine instead (`blockstep.py`).
+
 With `cfg.reuse_forces` (the default) the rates of the previous step's
 evaluation feed the first half-kick, so a step evaluates forces once and
 `prime` evaluates them before the first step; False is the reference's
@@ -50,8 +53,6 @@ def check_supported(cfg: SimConfig, axis_name: Optional[str] = None):
     """Raise NotImplementedError for a configuration the port does not run
     yet (ROADMAP.md lists the later slices)."""
     problems = []
-    if cfg.dt_bins > 1:
-        problems.append(f"block timesteps (dt_bins={cfg.dt_bins})")
     if cfg.neighbor_mode != "sorted":
         problems.append(f"neighbor_mode={cfg.neighbor_mode!r} "
                         f"(only 'sorted')")
@@ -297,16 +298,23 @@ def prime(state: SimState, cfg: SimConfig) -> SimState:
 
 
 def run_steps(state: SimState, cfg: SimConfig, n_steps: int) -> SimState:
-    """Advance exactly n_steps.  The far-field phase is step % pm_every,
-    pinned to this call: its first step solves the mesh, so a resumed state
-    never starts from a stale held force, and the later steps know their
-    held force is valid.  The returned `stats` is the running maximum of
-    the per-step counters over these steps, so one bad step cannot hide."""
+    """Advance exactly n_steps: global steps, or with cfg.dt_bins > 1 base
+    steps of the block-timestep engine (`blockstep.step_binned`).  The
+    far-field phase is step % pm_every, pinned to this call: its first step
+    solves the mesh, so a resumed state never starts from a stale held
+    force, and the later steps know their held force is valid.  The
+    returned `stats` is the running maximum of the per-step counters over
+    these steps, so one bad step cannot hide."""
+    from .blockstep import _step_binned  # blockstep imports this module
+
     state = init_carries(state, cfg)
     state = state.replace(stats=torch.zeros_like(state.stats))
     every = max(cfg.pm_every, 1)
     for i in range(n_steps):
-        out = _step(state, cfg, None, i % every, held_valid=i > 0)
+        if cfg.dt_bins > 1:
+            out = _step_binned(state, cfg, i % every, held_valid=i > 0)
+        else:
+            out = _step(state, cfg, None, i % every, held_valid=i > 0)
         state = out.replace(stats=torch.maximum(out.stats, state.stats))
     return state
 

@@ -16,6 +16,14 @@ integer attributes, one per kernel: `density_sums.launches`
 `force_sums.var_launches`, `force_sums.var_fused_launches` and
 `grav_short_sums.launches`.
 
+Block timesteps gate the passes by row: with `active` = (worklist [G]
+int32, count [1] int32) from `sorted_grid.group_worklist` only the window
+groups worklist[:count] are computed, by the `_gated` form of the same
+kernel (counted apart: `gated_launches`, `var_gated_launches`,
+`fused_gated_launches`, `var_fused_gated_launches`), which reads the count
+on the device.  Rows of the other groups come back 0.  Columns are never
+gated: an active row sums over all its candidates.
+
 Both versions compute the same sums over the same ranges: for every
 window group of `cfg.window_group` sorted rows and each of the 9 plane
 offsets, every candidate in the group's true [starts, ends), under each
@@ -70,9 +78,11 @@ def _library() -> ctypes.CDLL:
             ("force_fixed_h_grav", 25, [i32, i32, f32, f32, ptr]),
             ("force_var_h_grav", 25, [i32, i32, f32, f32, ptr]),
             ("grav_short", 12, [i32, i32, ptr])):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * n_ptr + tail
-        fn.restype = i32
+        # the gated form: two more pointers, worklist and count
+        for fn, k in ((getattr(lib, name), n_ptr),
+                      (getattr(lib, name + "_gated"), n_ptr + 2)):
+            fn.argtypes = [ptr] * k + tail
+            fn.restype = i32
     return lib
 
 
@@ -95,6 +105,21 @@ def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid):
                              f"{tuple(t.shape)}")
     if ints["key"].dtype != torch.int32:
         raise TypeError("grid.key must be int32")
+
+
+def _gate_pointers(active, groups: int, device):
+    """The (worklist, count) device pointers of a gated launch, after
+    checking what the kernel relies on: int32, contiguous, on `device`,
+    one worklist entry per window group."""
+    work, count = active
+    for name, t, shape in (("worklist", work, (groups,)),
+                           ("count", count, (1,))):
+        if (t.dtype != torch.int32 or not t.is_contiguous()
+                or t.shape != shape or t.device != device):
+            raise ValueError(f"active {name}: expected contiguous int32 "
+                             f"{shape} on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return work.data_ptr(), count.data_ptr()
 
 
 def _launch(fn, *args):
@@ -130,15 +155,18 @@ def _groups(n: int, cfg: SimConfig, grid: SortedGrid) -> int:
 
 # --------------------------------------------------------------- density
 
-def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid):
+def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
+                 active=None):
     """(rho_raw, omega_raw), each [N]: rho_raw = sum_j m_j W(r_ij, h_i)
     over the windows, self excluded (pairs.finalize_density adds it), and
     with variable h the grad-h sum omega_raw = sum_j m_j dW/dh(r_ij, h_i);
     with fixed h omega_raw is zero, as `pallas_density_sums` returns it.
-    CPU: the plain version; CUDA: the `density_fixed_h` kernel, or
-    `density_var_h` when cfg.fixed_h is None."""
+    With `active` = (worklist, count) only the listed window groups, 0 on
+    the rest.  CPU: the plain version; CUDA: the `density_fixed_h` kernel,
+    or `density_var_h` when cfg.fixed_h is None, or with `active` their
+    `_gated` forms."""
     if _on_cpu(p.pos):
-        return density_sums_plain(p, cfg, grid)
+        return density_sums_plain(p, cfg, grid, active)
     n = p.capacity
     groups = _groups(n, cfg, grid)
     pos, m = _soa(p)
@@ -146,32 +174,52 @@ def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid):
     _check_cuda_inputs(n, groups,
                        {"x": pos[0], "y": pos[1], "z": pos[2], "m": m,
                         "h": h}, {"key": grid.key}, grid)
-    rho = torch.empty(n, dtype=torch.float32, device=p.pos.device)
+    gated = active is not None
+    gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
+    var = cfg.fixed_h is None
+    # a gated kernel leaves unlisted rows unwritten: they must read 0
+    outs = (torch.zeros if gated or not var else torch.empty)(
+        (2, n), dtype=torch.float32, device=p.pos.device)
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
-    args = (pos[0].data_ptr(), pos[1].data_ptr(), pos[2].data_ptr(),
+    name = ("density_var_h" if var else "density_fixed_h") + (
+        "_gated" if gated else "")
+    _launch(getattr(_library(), name),
+            pos[0].data_ptr(), pos[1].data_ptr(), pos[2].data_ptr(),
             m.data_ptr(), h.data_ptr(), grid.key.data_ptr(),
-            grid.starts.data_ptr(), grid.ends.data_ptr(), rho.data_ptr())
-    if cfg.fixed_h is not None:
-        _launch(_library().density_fixed_h, *args, n, cfg.window_group,
-                stream)
-        density_sums.launches += 1
-        return rho, torch.zeros_like(rho)
-    omega = torch.empty_like(rho)
-    _launch(_library().density_var_h, *args, omega.data_ptr(), n,
-            cfg.window_group, stream)
-    density_sums.var_launches += 1
-    return rho, omega
+            grid.starts.data_ptr(), grid.ends.data_ptr(),
+            *(outs[c].data_ptr() for c in range(2 if var else 1)), *gate,
+            n, cfg.window_group, stream)
+    _count(density_sums, var, False, gated)
+    return outs[0], outs[1]
 
 
-density_sums.launches = 0
-density_sums.var_launches = 0
+def _count(wrapper, var: bool, fused: bool, gated: bool):
+    """Add one to the launch count of the kernel a wrapper just launched:
+    `launches`, with `var_`, `fused_` and `gated_` in that order for the
+    variable-h, fused-gravity and gated forms."""
+    name = (("var_" if var else "") + ("fused_" if fused else "")
+            + ("gated_" if gated else "") + "launches")
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
-def _candidate_chunks(grid: SortedGrid, wg: int):
-    """Yield (g0, g1, idx, valid, off), each [Gc, C], for window groups
-    g0..g1-1: every group's 9 candidate ranges laid end to end, padded to
-    the longest total C over all groups, with a validity mask and each
-    candidate's plane offset."""
+def launch_counters():
+    """(wrapper, attribute) of every launch count, one per CUDA kernel."""
+    sph = [v + f + g + "launches" for v in ("", "var_")
+           for f in ("", "fused_") for g in ("", "gated_")]
+    return ([(density_sums, a) for a in sph if "fused_" not in a]
+            + [(force_sums, a) for a in sph]
+            + [(grav_short_sums, "launches"),
+               (grav_short_sums, "gated_launches")])
+
+
+def _candidate_chunks(grid: SortedGrid, wg: int, active=None):
+    """Yield (rows, idx, valid, off) for chunks of window groups: `rows`
+    [Gc, wg] the groups' row indices, and, each [Gc, C], every group's 9
+    candidate ranges laid end to end, padded to the longest total C over
+    all groups, with a validity mask and each candidate's plane offset.
+    With `active` = (worklist, count) only the groups worklist[:count]
+    (the count is read here: the plain versions may wait for the
+    device)."""
     dev = grid.key.device
     ext = (grid.ends - grid.starts).long()                      # [G, 9]
     cum = torch.cumsum(ext, dim=1)
@@ -179,93 +227,107 @@ def _candidate_chunks(grid: SortedGrid, wg: int):
     step = max(1, PAIR_BUDGET // (wg * C))
     lane = torch.arange(C, device=dev)
     offs = torch.tensor(PLANE_OFFSETS, dtype=torch.int32, device=dev)
-    for g0 in range(0, grid.starts.shape[0], step):
-        g1 = min(grid.starts.shape[0], g0 + step)
-        c = cum[g0:g1]
+    if active is None:
+        listed = torch.arange(grid.starts.shape[0], device=dev)
+    else:
+        listed = active[0][:int(active[1][0])].long()
+    in_group = torch.arange(wg, device=dev)
+    for g0 in range(0, listed.shape[0], step):
+        sel = listed[g0:g0 + step]
+        c = cum[sel]
         # the range each lane falls in (9 = past the group's last range)
-        o = torch.searchsorted(c, lane.expand(g1 - g0, C).contiguous(),
+        o = torch.searchsorted(c, lane.expand(sel.shape[0], C).contiguous(),
                                right=True)
         valid = o < 9
         o = torch.clamp(o, max=8)
-        first = torch.gather(c - ext[g0:g1], 1, o)  # lane where range o starts
-        idx = torch.gather(grid.starts[g0:g1].long(), 1, o) + lane - first
-        yield g0, g1, torch.where(valid, idx, 0), valid, offs[o]
+        first = torch.gather(c - ext[sel], 1, o)  # lane where range o starts
+        idx = torch.gather(grid.starts[sel].long(), 1, o) + lane - first
+        yield (sel[:, None] * wg + in_group, torch.where(valid, idx, 0),
+               valid, offs[o])
 
 
-def _pair_geometry(pos: torch.Tensor, grid: SortedGrid, wg: int, g0, g1,
-                   idx, valid, off):
-    """(rows slice, key mask [Gc, wg, C], dx, dy, dz, r2) of one chunk of
-    the sorted positions `pos` [N, 3]."""
-    gc = g1 - g0
-    rows = slice(g0 * wg, g1 * wg)
-    ki = grid.key[rows].reshape(gc, wg, 1)
+def _pair_geometry(pos: torch.Tensor, grid: SortedGrid, rows, idx, valid,
+                   off):
+    """(key mask [Gc, wg, C], dx, dy, dz, r2) of one chunk of the sorted
+    positions `pos` [N, 3]."""
+    ki = grid.key[rows][:, :, None]
     kj = grid.key[idx][:, None, :]
     offc = off[:, None, :]
     mask = (valid[:, None, :] & (kj >= ki + offc - 1)
             & (kj <= ki + offc + 1))
-    d = [pos[rows, c].reshape(gc, wg, 1) - pos[idx, c][:, None, :]
+    d = [pos[rows, c][:, :, None] - pos[idx, c][:, None, :]
          for c in range(3)]
     r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    return rows, mask, d[0], d[1], d[2], r2
+    return mask, d[0], d[1], d[2], r2
 
 
-def density_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid):
-    """Plain PyTorch version of `density_fixed_h` and `density_var_h`, on
-    any device and dtype: the same pair algebra (rsqrt(max(r^2, 1e-12))
-    form, r^2 > 0 self exclusion, dW/dh shape -(3 w + q w')) over the same
-    ranges, in chunks of window groups."""
+def density_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
+                       active=None):
+    """Plain PyTorch version of `density_fixed_h` and `density_var_h` and,
+    with `active`, of their gated forms, on any device and dtype: the same
+    pair algebra (rsqrt(max(r^2, 1e-12)) form, r^2 > 0 self exclusion,
+    dW/dh shape -(3 w + q w')) over the same ranges, in chunks of window
+    groups."""
     wg = cfg.window_group
     _groups(p.capacity, cfg, grid)
     var = cfg.fixed_h is None
     m_all = torch.where(p.alive, p.mass, 0.0)
-    rho = torch.empty_like(p.h)
+    rho = torch.zeros_like(p.h)
     omega = torch.zeros_like(p.h)
-    for g0, g1, idx, valid, off in _candidate_chunks(grid, wg):
-        rows, mask, _, _, _, r2 = _pair_geometry(p.pos, grid, wg, g0, g1,
-                                                 idx, valid, off)
-        inv_hi = 1.0 / p.h[rows].reshape(g1 - g0, wg, 1)
+    for rows, idx, valid, off in _candidate_chunks(grid, wg, active):
+        mask, _, _, _, r2 = _pair_geometry(p.pos, grid, rows, idx, valid,
+                                           off)
+        inv_hi = 1.0 / p.h[rows][:, :, None]
         r = r2 * torch.rsqrt(torch.clamp(r2, min=1.0e-12))
         q = r * inv_hi
         w = w_shape(q)
         m = torch.where(mask & (r2 > 0.0), m_all[idx][:, None, :], 0.0)
         inv_pi_h3 = (1.0 / PI) * inv_hi * inv_hi * inv_hi
         rho[rows] = (torch.sum(m * w, dim=-1, keepdim=True)
-                     * inv_pi_h3).reshape(-1)
+                     * inv_pi_h3)[:, :, 0]
         if var:
             dwdh = -(3.0 * w + q * dw_shape(q))
             omega[rows] = (torch.sum(m * dwdh, dim=-1, keepdim=True)
-                           * inv_pi_h3 * inv_hi).reshape(-1)
+                           * inv_pi_h3 * inv_hi)[:, :, 0]
     return rho, omega
 
 
-def density(p: Particles, cfg: SimConfig, grid: SortedGrid) -> Particles:
+def density(p: Particles, cfg: SimConfig, grid: SortedGrid, active=None,
+            act_mask=None) -> Particles:
     """`p` with rho and omega from the density pass: the sums, the self
     term and the grad-h correction (`pairs.finalize_density`); omega is 1
     with fixed h.  Counterpart of `pallas_density`, which the h-iteration
-    re-sums through."""
-    rho_raw, omega_raw = density_sums(p, cfg, grid)
+    re-sums through.  With `active` = (worklist, count) and `act_mask` [N]
+    bool (block timesteps) only the listed groups are summed, and rows
+    outside `act_mask` keep their incoming rho and omega."""
+    rho_raw, omega_raw = density_sums(p, cfg, grid, active)
     rho, omega = pairs.finalize_density(rho_raw, omega_raw, p.h, p.alive,
                                         p.mass)
     if cfg.fixed_h is not None:
         omega = torch.ones_like(omega)
+    if act_mask is not None:
+        rho = torch.where(act_mask, rho, p.rho)
+        omega = torch.where(act_mask, omega, p.omega)
     return p.replace(rho=rho, omega=omega)
 
 
 # ----------------------------------------------------------------- force
 
 def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
-               grav_split=None):
+               grav_split=None, active=None):
     """(ax, ay, az, du, alpha_raw), each [N]: pressure + Monaghan
     viscosity, with one dW for fixed h or the grad-h pair of gradients and
     hbar for variable h.  `p` must carry rho/P/omega/cs from the density
     pass.  With `grav_split` = (r_s, r_cut) also the short-range gravity
     sums over the same windows, as a last element (gx, gy, gz) (the fused
     form, `pallas_force_sums` with fuse_grav; the caller checks that r_cut
-    fits the SPH cell).  CPU: the plain version; CUDA: `force_fixed_h` or
-    `force_var_h`, or with `grav_split` `force_fixed_h_grav` or
-    `force_var_h_grav`, by cfg.fixed_h."""
+    fits the SPH cell).  With `active` = (worklist, count) only the listed
+    window groups, 0 on the rest.  CPU: the plain version; CUDA:
+    `force_fixed_h` or `force_var_h`, or with `grav_split`
+    `force_fixed_h_grav` or `force_var_h_grav`, by cfg.fixed_h, or with
+    `active` the `_gated` form of the same."""
     if _on_cpu(p.pos):
-        return force_sums_plain(p, cfg, grid, grav_split)
+        return force_sums_plain(p, cfg, grid, grav_split, active)
     n = p.capacity
     groups = _groups(n, cfg, grid)
     pos, m = _soa(p)
@@ -276,8 +338,11 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
               "omega": p.omega.contiguous(), "cs": p.cs.contiguous(),
               "alpha": p.alpha.contiguous()}
     _check_cuda_inputs(n, groups, fields, {"key": grid.key}, grid)
-    nc = 5 if grav_split is None else 8
-    outs = torch.empty((nc, n), dtype=torch.float32, device=p.pos.device)
+    gated, fused = active is not None, grav_split is not None
+    gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
+    # a gated kernel leaves unlisted rows unwritten: they must read 0
+    outs = (torch.zeros if gated else torch.empty)(
+        (8 if fused else 5, n), dtype=torch.float32, device=p.pos.device)
     f = fields
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
     args = (f["x"].data_ptr(), f["y"].data_ptr(), f["z"].data_ptr(),
@@ -287,38 +352,26 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
             f["omega"].data_ptr(), f["cs"].data_ptr(), f["alpha"].data_ptr(),
             grid.starts.data_ptr(), grid.ends.data_ptr(),
             *(outs[c].data_ptr() for c in range(5)))
-    tail = (n, cfg.window_group, cfg.av_eps, cfg.beta_factor, stream)
-    lib = _library()
     var = cfg.fixed_h is None
-    if grav_split is None:
-        if var:
-            _launch(lib.force_var_h, *args, *tail)
-            force_sums.var_launches += 1
-        else:
-            _launch(lib.force_fixed_h, *args, *tail)
-            force_sums.launches += 1
+    grav = ()
+    if fused:
+        split = _split_buffer(grav_split, p.pos.device)
+        grav = (split.data_ptr(), *(outs[c].data_ptr() for c in range(5, 8)))
+    name = (("force_var_h" if var else "force_fixed_h")
+            + ("_grav" if fused else "") + ("_gated" if gated else ""))
+    _launch(getattr(_library(), name), *args, *grav, *gate, n,
+            cfg.window_group, cfg.av_eps, cfg.beta_factor, stream)
+    _count(force_sums, var, fused, gated)
+    if not fused:
         return tuple(outs)
-    split = _split_buffer(grav_split, p.pos.device)
-    grav = (split.data_ptr(), *(outs[c].data_ptr() for c in range(5, 8)))
-    if var:
-        _launch(lib.force_var_h_grav, *args, *grav, *tail)
-        force_sums.var_fused_launches += 1
-    else:
-        _launch(lib.force_fixed_h_grav, *args, *grav, *tail)
-        force_sums.fused_launches += 1
     return tuple(outs[:5]) + (tuple(outs[5:]),)
 
 
-force_sums.launches = 0
-force_sums.fused_launches = 0
-force_sums.var_launches = 0
-force_sums.var_fused_launches = 0
-
-
 def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
-                     grav_split=None):
-    """Plain PyTorch version of `force_fixed_h` and `force_var_h` (and,
-    with `grav_split`, of their fused forms), on any device and dtype: the
+                     grav_split=None, active=None):
+    """Plain PyTorch version of `force_fixed_h` and `force_var_h` (with
+    `grav_split` of their fused forms, with `active` of the gated form of
+    any of the four), on any device and dtype: the
     Pallas algebra (one dW with fixed h; dW_i, dW_j, their mean and hbar
     with variable h; the 1e-30 guards on pterm_j and rhobar, the rsqrt
     clamp, no explicit r > 0 guard) over the same ranges, in chunks."""
@@ -333,15 +386,14 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
         inv_pi_hj4_all = (((1.0 / PI) * inv_hj_all * inv_hj_all)
                           * (inv_hj_all * inv_hj_all))
     nc = 5 if grav_split is None else 8
-    outs = torch.empty((nc, p.capacity), dtype=p.pos.dtype,
+    outs = torch.zeros((nc, p.capacity), dtype=p.pos.dtype,
                        device=p.pos.device)
-    for g0, g1, idx, valid, off in _candidate_chunks(grid, wg):
-        gc = g1 - g0
-        rows, mask, dxx, dxy, dxz, r2 = _pair_geometry(p.pos, grid, wg, g0,
-                                                       g1, idx, valid, off)
+    for rows, idx, valid, off in _candidate_chunks(grid, wg, active):
+        mask, dxx, dxy, dxz, r2 = _pair_geometry(p.pos, grid, rows, idx,
+                                                 valid, off)
 
         def ri(a):
-            return a[rows].reshape(gc, wg, 1)
+            return a[rows][:, :, None]
 
         def cj(a):
             return a[idx][:, None, :]
@@ -383,7 +435,7 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
             gcoef = _grav_coef(r2, hi, m, mask, grav_split)
             sums += [gcoef * dxx, gcoef * dxy, gcoef * dxz]
         for c, s in enumerate(sums):
-            outs[c, rows] = torch.sum(s, dim=-1).reshape(-1)
+            outs[c, rows] = torch.sum(s, dim=-1)
     if grav_split is None:
         return tuple(outs)
     return tuple(outs[:5]) + (tuple(outs[5:]),)
@@ -405,16 +457,20 @@ def _grav_coef(r2, h_i, m, mask, grav_split):
 
 
 def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
-                    grid: SortedGrid, cfg: SimConfig, grav_split):
+                    grid: SortedGrid, cfg: SimConfig, grav_split,
+                    active=None):
     """(gx, gy, gz), each [N]: the TreePM short-range gravity sums
     sum_j -G m_j [f(r_ij / h_i) - S(r_ij)] r_ij / r_ij^3 over 0 < r < r_cut
     on the gravity sort -- `pos` [N, 3], the masked mass `m` and `h` in
     the sorted order of `grid`, whose cells are r_cut wide
     (`pm_gravity.pm_short_range`).  Counterpart of
-    `pallas_grav_short_sums`.  CPU: the plain version; CUDA: the
-    `grav_short` kernel."""
+    `pallas_grav_short_sums`.  With `active` = (worklist, count), over the
+    groups of this sort, only the listed ones, 0 on the rest.  CPU: the
+    plain version; CUDA: the `grav_short` kernel, with `active`
+    `grav_short_gated`."""
     if _on_cpu(pos):
-        return grav_short_sums_plain(pos, m, h, grid, cfg, grav_split)
+        return grav_short_sums_plain(pos, m, h, grid, cfg, grav_split,
+                                     active)
     n = pos.shape[0]
     groups = _groups(n, cfg, grid)
     xyz = pos.t().contiguous()
@@ -422,55 +478,65 @@ def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
     _check_cuda_inputs(n, groups, {"x": xyz[0], "y": xyz[1], "z": xyz[2],
                                    "m": m, "h": h}, {"key": grid.key}, grid)
     split = _split_buffer(grav_split, pos.device)
-    outs = torch.empty((3, n), dtype=torch.float32, device=pos.device)
+    gated = active is not None
+    gate = _gate_pointers(active, groups, pos.device) if gated else ()
+    # a gated kernel leaves unlisted rows unwritten: they must read 0
+    outs = (torch.zeros if gated else torch.empty)(
+        (3, n), dtype=torch.float32, device=pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    _launch(_library().grav_short,
+    lib = _library()
+    _launch(lib.grav_short_gated if gated else lib.grav_short,
             xyz[0].data_ptr(), xyz[1].data_ptr(), xyz[2].data_ptr(),
             m.data_ptr(), h.data_ptr(), grid.key.data_ptr(),
             grid.starts.data_ptr(), grid.ends.data_ptr(), split.data_ptr(),
-            *(outs[c].data_ptr() for c in range(3)),
+            *(outs[c].data_ptr() for c in range(3)), *gate,
             n, cfg.window_group, stream)
-    grav_short_sums.launches += 1
+    _count(grav_short_sums, False, False, gated)
     return tuple(outs)
-
-
-grav_short_sums.launches = 0
 
 
 def grav_short_sums_plain(pos: torch.Tensor, m: torch.Tensor,
                           h: torch.Tensor, grid: SortedGrid, cfg: SimConfig,
-                          grav_split):
-    """Plain PyTorch version of `grav_short`, on any device and dtype: the
-    same sums over the same ranges, in chunks of window groups."""
+                          grav_split, active=None):
+    """Plain PyTorch version of `grav_short` and, with `active`, of
+    `grav_short_gated`, on any device and dtype: the same sums over the
+    same ranges, in chunks of window groups."""
     wg = cfg.window_group
     _groups(pos.shape[0], cfg, grid)
-    outs = torch.empty((3, pos.shape[0]), dtype=pos.dtype,
+    outs = torch.zeros((3, pos.shape[0]), dtype=pos.dtype,
                        device=pos.device)
-    for g0, g1, idx, valid, off in _candidate_chunks(grid, wg):
-        rows, mask, dxx, dxy, dxz, r2 = _pair_geometry(pos, grid, wg, g0,
-                                                       g1, idx, valid, off)
-        gcoef = _grav_coef(r2, h[rows].reshape(g1 - g0, wg, 1),
-                           m[idx][:, None, :], mask, grav_split)
+    for rows, idx, valid, off in _candidate_chunks(grid, wg, active):
+        mask, dxx, dxy, dxz, r2 = _pair_geometry(pos, grid, rows, idx,
+                                                 valid, off)
+        gcoef = _grav_coef(r2, h[rows][:, :, None], m[idx][:, None, :],
+                           mask, grav_split)
         for c, d in enumerate((dxx, dxy, dxz)):
-            outs[c, rows] = torch.sum(gcoef * d, dim=-1).reshape(-1)
+            outs[c, rows] = torch.sum(gcoef * d, dim=-1)
     return tuple(outs)
 
 
 # ------------------------------------------------------------ pair passes
 
 def pair_eval(p: Particles, cfg: SimConfig, grid: SortedGrid,
-              grav_split=None):
+              grav_split=None, active=None, act_mask=None):
     """Density -> EOS -> forces on the sorted particles.  Counterpart of
     `pallas_pair_eval`.  Returns (p with rho/omega/pressure/cs, acc [N, 3],
     du, dalpha[, acc_grav [N, 3]]), the rates zero on dead rows; the last
     only with `grav_split` = (r_s, r_cut): the fused short-range gravity
-    acceleration (cfg.grav_fuse_short)."""
-    p = eos_update(density(p, cfg, grid), cfg)
-    out = force_sums(p, cfg, grid, grav_split)
+    acceleration (cfg.grav_fuse_short).
+
+    Block timesteps pass `active` = (worklist, count) and `act_mask` [N]
+    bool: only the listed window groups are summed; rows outside
+    `act_mask` keep the rho and omega they came with (the substep sort
+    carried them), the EOS runs on the merged arrays, so the force pass
+    reads the stale values of inactive neighbours, and the returned rates
+    are exactly 0 outside alive & act_mask."""
+    p = eos_update(density(p, cfg, grid, active, act_mask), cfg)
+    out = force_sums(p, cfg, grid, grav_split, active)
     ax, ay, az, du, araw = out[:5]
     acc = torch.stack([ax, ay, az], dim=-1)
     dalpha = pairs.alpha_rate(araw, p.rho, p.alpha, p.cs, p.h, cfg)
-    alive = p.alive
+    alive = p.alive if act_mask is None else p.alive & act_mask
     res = (p, torch.where(alive[:, None], acc, 0.0),
            torch.where(alive, du, 0.0), torch.where(alive, dalpha, 0.0))
     if grav_split is not None:
@@ -486,6 +552,9 @@ def window_overflow(grid: SortedGrid, cfg: SimConfig) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=grid.key.device)
 
 
+for _wrapper, _attr in launch_counters():
+    setattr(_wrapper, _attr, 0)
+
 __all__ = ["density_sums", "density_sums_plain", "density", "force_sums",
            "force_sums_plain", "grav_short_sums", "grav_short_sums_plain",
-           "pair_eval", "window_overflow", "SOURCE"]
+           "pair_eval", "window_overflow", "launch_counters", "SOURCE"]

@@ -42,7 +42,7 @@ from ..utils.units import G, PI
 from .cuda_pairs import grav_short_sums
 from .kernels import grav_softening
 from .sorted_grid import (LANES, SENTINEL_KEY, SortedGrid, _cell_key,
-                          _pad_to, group_windows)
+                          _pad_to, group_windows, group_worklist)
 
 PM_MODES = ("bh", "pm", "treepm")
 
@@ -267,16 +267,27 @@ def gravity_sort(p: Particles, cfg: SimConfig, r_s):
             padded(p.h, 1.0)[perm], grid, perm, (r_s, r_cut))
 
 
-def pm_short_range(p: Particles, cfg: SimConfig, r_s):
+def pm_short_range(p: Particles, cfg: SimConfig, r_s, active_rows=None):
     """Direct complementary pair force within r_cut = effective_rcut_rs *
     r_s: the slim gravity sort (`gravity_sort`), the `grav_short` kernel
     (its plain version on the CPU) and a scatter back to p's order.  `p`
     may be in any order; the result matches it.  Returns (acc [N, 3],
     n_window_overflow), the count always 0: the kernel covers every
-    group's whole candidate range."""
+    group's whole candidate range.
+
+    `active_rows` [N] bool (block timesteps) rides the gravity sort; a
+    worklist over the window groups of that order, not of p's, gates the
+    kernel (`grav_short_gated`), and inactive rows return exactly 0."""
     pos_s, m_s, h_s, grid, perm, split = gravity_sort(p, cfg, r_s)
-    acc_s = torch.stack(grav_short_sums(pos_s, m_s, h_s, grid, cfg, split),
-                        dim=-1)
+    gate = act_s = None
+    if active_rows is not None:
+        pad = active_rows.new_zeros(perm.shape[0] - p.capacity)
+        act_s = torch.cat([active_rows, pad])[perm]
+        gate = group_worklist(act_s, cfg.window_group)
+    acc_s = torch.stack(
+        grav_short_sums(pos_s, m_s, h_s, grid, cfg, split, gate), dim=-1)
+    if act_s is not None:
+        acc_s = torch.where(act_s[:, None], acc_s, 0.0)
     n0 = p.capacity
     acc = torch.empty_like(p.pos)
     acc[perm[:n0]] = acc_s[:n0].to(acc.dtype)

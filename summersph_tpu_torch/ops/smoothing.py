@@ -17,7 +17,11 @@ rho/Omega and every later one re-sums the density at the new h through
 `cuda_pairs.density` (the `density_var_h` kernel on the card), so
 `h_iter_max` iterations cost `h_iter_max - 1` density passes.  rho/Omega
 are left at the previous h, as in the JAX package: the next step's force
-pass recomputes them.  h_cap = min(max_length, cell / 2) keeps every
+pass recomputes them.  A block-timestep substep (blockstep.py) iterates
+its closing rows only: `act_mask` starts the iteration from alive &
+act_mask, and `active` = (worklist, count) gates the re-sums to the window
+groups that hold such a row (`density_var_h_gated`); the caller takes h
+alone from the result.  h_cap = min(max_length, cell / 2) keeps every
 neighbour inside the sort's +-1-cell stencil, whose cells carry the
 `cfg.sort_h_pad` headroom.
 
@@ -47,12 +51,13 @@ def _newton(h, rho, omega, m, eta):
 
 
 def _newton_scan(p: Particles, cfg: SimConfig, dens, h_cap,
-                 resum_first: bool):
+                 resum_first: bool, act_mask=None):
     """`cfg.h_iter_max` masked Newton iterations: re-sum (except the first
     unless `resum_first`), update, clamp to [0.01, h_cap], freeze the
     converged.  Convergence is judged on the unclamped step, so a particle
-    held at the cap keeps tracking it."""
-    active = p.alive
+    held at the cap keeps tracking it.  Rows outside `act_mask` never
+    move."""
+    active = p.alive if act_mask is None else p.alive & act_mask
     n_open = torch.zeros((), dtype=torch.int32, device=p.pos.device)
     for it in range(cfg.h_iter_max):
         if it > 0 or resum_first:
@@ -73,13 +78,15 @@ def _h_cap(cfg: SimConfig, grid: SortedGrid) -> torch.Tensor:
 
 
 def _update_smoothing_shared(p: Particles, cfg: SimConfig,
-                             grid: SortedGrid):
+                             grid: SortedGrid, active=None, act_mask=None):
     """The in-step path: `p` is in the sorted order of the step's `grid`
     with rho/Omega fresh from its force pass.  No sort; the first update
-    reuses that density."""
+    reuses that density.  With `active` and `act_mask` the returned
+    rho/Omega mean something on the active rows only."""
     vcfg = cfg.with_(fixed_h=None)
-    return _newton_scan(p, cfg, lambda q: density(q, vcfg, grid),
-                        _h_cap(cfg, grid), resum_first=False)
+    return _newton_scan(
+        p, cfg, lambda q: density(q, vcfg, grid, active, act_mask),
+        _h_cap(cfg, grid), resum_first=False, act_mask=act_mask)
 
 
 def _update_smoothing_sorted(p: Particles, cfg: SimConfig):
@@ -103,10 +110,13 @@ def _update_smoothing_sorted(p: Particles, cfg: SimConfig):
 
 
 def update_smoothing(p: Particles, cfg: SimConfig, cols=None, grid=None,
-                     axis_name=None, key_rows=None):
+                     axis_name=None, key_rows=None, active=None,
+                     act_mask=None):
     """Newton-iterate h on `p`.  With the step's sorted `grid` (and `p` in
-    its order with fresh rho/Omega) the shared path; without one the
-    standalone sorted path.  Returns (particles, n_unconverged int32).
+    its order with fresh rho/Omega) the shared path, on which `active` =
+    (worklist, count) and `act_mask` restrict the iteration to a
+    block-timestep substep's active rows; without a grid the standalone
+    sorted path.  Returns (particles, n_unconverged int32).
     The sharded (`cols`, `key_rows`, `axis_name`) and the grid and dense
     engines are not ported and raise NotImplementedError."""
     if cols is not None or key_rows is not None or axis_name is not None:
@@ -118,7 +128,10 @@ def update_smoothing(p: Particles, cfg: SimConfig, cols=None, grid=None,
             f"update_smoothing: neighbor_mode={cfg.neighbor_mode!r} is not "
             f"ported (only 'sorted')")
     if grid is not None:
-        return _update_smoothing_shared(p, cfg, grid)
+        return _update_smoothing_shared(p, cfg, grid, active, act_mask)
+    if active is not None or act_mask is not None:
+        raise ValueError("update_smoothing: active/act_mask need the "
+                         "step's sorted grid")
     return _update_smoothing_sorted(p, cfg)
 
 

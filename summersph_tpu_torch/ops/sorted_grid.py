@@ -24,7 +24,7 @@ packages per `pid`, never per slot.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
 
 import torch
 
@@ -43,6 +43,14 @@ PLANE_OFFSETS = [dx * KX + dy * KY
                  for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
 
 LANES = 128  # the padding granule (with cfg.sorted_block)
+
+
+@functools.cache
+def _plane_offsets(device: torch.device) -> torch.Tensor:
+    """PLANE_OFFSETS as an int32 tensor, made once per device: a tensor
+    built from a Python list on every sort is a host-to-device copy from
+    pageable memory, which makes the host wait for the card."""
+    return torch.tensor(PLANE_OFFSETS, dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,14 +94,20 @@ def _pad_particles(p: Particles, padded: int) -> Particles:
                         for f in dataclasses.fields(p)})
 
 
-def sort_particles(p: Particles, cfg: SimConfig,
-                   h_pad: float = 1.0) -> Tuple[Particles, SortedGrid]:
+def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
+                   carry_derived: bool = False, extra=None):
     """Sort the particles by cell key and find every group's 9 windows.
 
     Returns (sorted particles, padded with dead slots to a multiple of
-    max(sorted_block, 128), grid).  Only the pair passes' inputs survive
+    max(sorted_block, 128), grid), and as a third element `extra` in the
+    sorted order when it is given: an [N] tensor that rides the sort, padded
+    with 0 (the block-timestep rung).  Only the pair passes' inputs survive
     the sort; rho, P, cs, du, dalpha and acc come back zeroed and omega one,
-    for the caller to recompute, as in the JAX package.
+    for the caller to recompute, as in the JAX package -- except with
+    `carry_derived` (the block-timestep substep sort, blockstep.py), where
+    they ride the sort too: inactive rows go on serving their last
+    evaluation's rho/P/cs/omega to their active neighbours, and their
+    carried acc/du/dalpha to their own later kicks.
     """
     B = cfg.sorted_block
     wg = cfg.window_group
@@ -103,6 +117,8 @@ def sort_particles(p: Particles, cfg: SimConfig,
             f"({B}) and {LANES} so window groups tile the padded capacity")
     padded = _pad_to(p.capacity, max(B, LANES))
     if padded != p.capacity:
+        if extra is not None:
+            extra = torch.cat([extra, extra.new_zeros(padded - p.capacity)])
         p = _pad_particles(p, padded)
     cap = padded
     dtype = p.pos.dtype
@@ -120,7 +136,9 @@ def sort_particles(p: Particles, cfg: SimConfig,
         idx = (cap - n_live
                + (q * torch.clamp(n_live - 1, min=0).to(dtype))
                .to(torch.int32))
-        h_cell = hs[torch.clamp(idx, 0, cap - 1)]
+        # index_select: hs[idx] with a 0-d index reads idx on the host
+        h_cell = torch.index_select(
+            hs, 0, torch.clamp(idx, 0, cap - 1).reshape(1))[0]
     cell_size = torch.clamp(2.0 * h_cell * h_pad, min=1.0e-12)
 
     key = torch.where(p.alive, _cell_key(p.pos, origin, cell_size),
@@ -131,21 +149,27 @@ def sort_particles(p: Particles, cfg: SimConfig,
     n_clamped = torch.sum(pos_over | reach_over).to(torch.int32)
 
     key_s, perm = torch.sort(key, stable=True)
-    zero = torch.zeros(cap, dtype=dtype, device=p.pos.device)
+    if carry_derived:
+        p_s = p.map(lambda a: a[perm]).replace(alive=key_s != SENTINEL_KEY)
+    else:
+        zero = torch.zeros(cap, dtype=dtype, device=p.pos.device)
 
-    def gather(a):
-        return None if a is None else a[perm]
+        def gather(a):
+            return None if a is None else a[perm]
 
-    p_s = p.replace(
-        pos=p.pos[perm], vel=p.vel[perm], acc=torch.zeros_like(p.pos),
-        mass=p.mass[perm], u=p.u[perm], alpha=p.alpha[perm], h=p.h[perm],
-        pid=p.pid[perm], u_c=gather(p.u_c), acc_ext=gather(p.acc_ext),
-        alive=key_s != SENTINEL_KEY, omega=torch.ones_like(zero),
-        rho=zero, pressure=zero, cs=zero, du=zero, dalpha=zero)
+        p_s = p.replace(
+            pos=p.pos[perm], vel=p.vel[perm], acc=torch.zeros_like(p.pos),
+            mass=p.mass[perm], u=p.u[perm], alpha=p.alpha[perm],
+            h=p.h[perm], pid=p.pid[perm], u_c=gather(p.u_c),
+            acc_ext=gather(p.acc_ext), alive=key_s != SENTINEL_KEY,
+            omega=torch.ones_like(zero), rho=zero, pressure=zero, cs=zero,
+            du=zero, dalpha=zero)
 
     starts, ends = group_windows(key_s, wg)
     grid = SortedGrid(key=key_s, starts=starts, ends=ends, origin=origin,
                       cell_size=cell_size, n_clamped=n_clamped)
+    if extra is not None:
+        return p_s, grid, extra[perm]
     return p_s, grid
 
 
@@ -160,8 +184,7 @@ def group_windows(key_s: torch.Tensor, window_group: int):
     kmin = key_s.view(G, window_group)[:, 0]
     kmax = key_s.view(G, window_group)[:, -1]
     first_dead = torch.sum(key_s != SENTINEL_KEY).to(torch.int32)
-    offs = torch.tensor(PLANE_OFFSETS, dtype=torch.int32,
-                        device=key_s.device)
+    offs = _plane_offsets(key_s.device)
     lo = (kmin[:, None] + offs[None, :] - 1).contiguous()       # [G, 9]
     hi = (kmax[:, None] + offs[None, :] + 1).contiguous()
     starts = torch.searchsorted(key_s, lo, right=False, out_int32=True)
@@ -169,5 +192,18 @@ def group_windows(key_s: torch.Tensor, window_group: int):
     return starts, torch.maximum(torch.minimum(ends, first_dead), starts)
 
 
-__all__ = ["SortedGrid", "sort_particles", "group_windows", "PLANE_OFFSETS",
+def group_worklist(act: torch.Tensor, block: int):
+    """(worklist [G] int32, count [1] int32) over row blocks of `block`
+    rows: the blocks that hold an active row of `act` [N] bool, compacted
+    to the front in ascending order (the rest follow), for the gated pair
+    kernels.  The port's kernels own one window group a CUDA block, so
+    its callers pass `cfg.window_group`.  Both stay on the device."""
+    blk_act = torch.any(act.view(act.shape[0] // block, block), dim=1)
+    work = torch.sort((~blk_act).to(torch.int8), stable=True).indices
+    return (work.to(torch.int32),
+            torch.sum(blk_act, dtype=torch.int32).reshape(1))
+
+
+__all__ = ["SortedGrid", "sort_particles", "group_windows",
+           "group_worklist", "PLANE_OFFSETS",
            "SENTINEL_KEY", "WINDOW", "WINDOW_BITS", "LANES"]

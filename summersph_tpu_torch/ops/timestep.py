@@ -32,13 +32,16 @@ def dt_candidates(p: Particles, cfg: SimConfig) -> torch.Tensor:
     return torch.where(p.alive, cand, torch.inf) * cfg.timestep_scale
 
 
-def next_timestep(p: Particles, dt: torch.Tensor,
-                  cfg: SimConfig) -> torch.Tensor:
+def next_timestep(p: Particles, dt: torch.Tensor, cfg: SimConfig,
+                  cand_scale: float = 1.0) -> torch.Tensor:
     """Grow x dt_grow when the candidate exceeds 2 dt (capped at dt_max),
     shrink x dt_shrink when below dt / 2 (floored at dt_min), then bound
-    by the candidate itself unless cfg.dt_bound_candidate is off."""
+    by the candidate itself unless cfg.dt_bound_candidate is off.
+    `cand_scale` relaxes the candidate: with block timesteps the base step
+    may exceed the tightest particle's candidate by 2^(dt_bins - 1),
+    because that particle steps on the deepest rung (blockstep.py)."""
     cand = dt_candidates(p, cfg) / cfg.timestep_scale
-    dt_cand = torch.amin(cand) * cfg.timestep_scale
+    dt_cand = torch.amin(cand) * cfg.timestep_scale * cand_scale
     grown = torch.where((dt_cand > 2.0 * dt) & (cfg.dt_grow * dt < cfg.dt_max),
                         cfg.dt_grow * dt, dt)
     shrunk = torch.where(
