@@ -88,11 +88,27 @@ caught:
    TreePM, pm_every 4): 3 density_var_h_gated, 1 force_var_h_gated and 1
    grav_short_gated launch per substep, one mesh solve per run_steps call,
    the collapse checks, the layer spans, the busy share and the A/B;
-16. print the kernels' JSON line (with each kernel's bound: the larger of
+16. window shapes built to break a queue or a tile loop
+   (summersph_tpu_torch/models/ragged.py: empty ranges, ranges of 1, 31,
+   32, 33 and 129 candidates, a group that ends in dead rows, rows with
+   no pair, a group whose every candidate is a pair, a small clump, an h
+   gradient whose pairs reach only from j) and a 16,384-particle clump
+   with variable h: the force kernels (fixed h, variable h, fused) and
+   the gravity kernel against the plain version in float64
+   (`hold_exact`), two launches of each compared bit for bit, the fused
+   form's SPH sums equal to the unfused kernel's, and the `pack_force`
+   kernel equal to its plain version bit for bit;
+17. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
    the rows and pairs of the listed groups only) and, last,
    {"ok": true, "device": ...}.
+
+For the force and gravity kernels, which test every candidate of a row's
+windows and run the pair arithmetic on the survivors only, the kernel
+checks print the candidates tested per row and the share that survives
+the test; phases 7, 11 and 15 also launch `grav_short` and `force_var_h`
+twice on one state and require equal bits.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false.  No JAX is imported.
@@ -138,6 +154,9 @@ KERNELS.update({
                        ("force_fixed_h_grav", 606), ("grav_short", 881),
                        ("density_var_h", 366), ("force_var_h", 606),
                        ("force_var_h_grav", 606))})
+# the force kernels' per-particle records (the TPU pack `_pack`), formed by
+# one kernel before every force launch; bytes with variable h
+KERNELS["pack_force"] = ("summersph_tpu/ops/pallas_pairs.py:94", 57 + 84)
 BINS_DISC, BINS_COLLAPSE = 4, 3     # dt_bins of the block-timestep paths
 
 
@@ -161,6 +180,7 @@ def launch_counts():
 
     counts = {kernel_name(w, a): getattr(w, a)
               for w, a in cuda_pairs.launch_counters()}
+    counts["pack_force"] = cuda_pairs.pack_force.launches
     counts["mesh solves"] = pm_gravity.pm_long_range.solves
     return counts
 
@@ -174,6 +194,7 @@ def reset_counts():
 
     for wrapper, attr in cuda_pairs.launch_counters():
         setattr(wrapper, attr, 0)
+    cuda_pairs.pack_force.launches = 0
     pm_gravity.pm_long_range.solves = 0
 
 
@@ -376,6 +397,33 @@ def bound(name, n_rows, groups, ops, active=None):
             "bytes" if t_bytes > t_ops else "operations")
 
 
+def tested_share(name, grid, wg, survivors, label, active=None):
+    """Print what a kernel that tests every candidate and runs the pair
+    arithmetic on the survivors had to do: the candidates each row tests
+    (all of its group's 9 ranges) and the share of them that survives."""
+    ext = (grid.ends - grid.starts).sum(dim=1)
+    if active is not None:
+        ext = ext[active[0][:int(active[1])].long()]
+    tested = int(ext.sum()) * wg
+    print(f"[{label}] {name}: candidates tested per row "
+          f"{tested / max(ext.shape[0] * wg, 1):.1f}, of which "
+          f"{survivors / max(tested, 1):.4f} survive the test "
+          f"({survivors} of {tested})", flush=True)
+
+
+def twice_bitwise(name, call, label):
+    """Two launches of one kernel on one state must give the same bits."""
+    import torch
+
+    first, second = flat(call()), flat(call())
+    torch.cuda.synchronize()
+    for c, (a, b) in enumerate(zip(first, second)):
+        require(torch.equal(a, b),
+                f"{name} output {c}: two launches differ ({label})")
+    print(f"[{label}] {name}: two launches on one state equal bit for bit",
+          flush=True)
+
+
 def sph_pair_counts(p, grid, cfg, active=None):
     """(density pairs, force pairs) the sums need: inside 2h with fixed
     h; inside 2 h_i and inside 2 max(h_i, h_j) with variable h.  With
@@ -447,6 +495,14 @@ def sph_kernels(p_sorted, grid, cfg, label, active=None):
         print(f"[{label}] pairs inside 2h: {n_dens} "
               f"({n_dens / max(n_rows, 1):.1f} per row of {n_rows})",
               flush=True)
+    # the force kernel's test also passes a live row's own candidate (r = 0)
+    live = p_sorted.alive if active is None else (
+        p_sorted.alive.view(groups, -1)[
+            active[0][:int(active[1])].long()])
+    tested_share(fname, grid, cfg.window_group, n_force + int(live.sum()),
+                 label, active)
+    twice_bitwise(fname, lambda: cuda_pairs.force_sums(p_dens, cfg, grid,
+                                                       None, active), label)
     out[dname] += bound(dname, rows, groups,
                         n_dens * (OPS_DENSITY_VAR if var else OPS_DENSITY),
                         active)
@@ -530,6 +586,9 @@ def grav_kernel(p, cfg, label, plain_reps=2, active_rows=None):
               else int(active[1]) * cfg.window_group)
     print(f"[{label}] pairs inside r_cut: {n_grav} "
           f"({n_grav / max(n_rows, 1):.1f} per row of {n_rows})", flush=True)
+    tested_share(name, ggrid, cfg.window_group, n_grav, label, active)
+    twice_bitwise(name, lambda: cuda_pairs.grav_short_sums(
+        pos, m, h, ggrid, cfg, split, active), label)
     return res + bound(name, pos.shape[0], ggrid.starts.shape[0],
                        n_grav * OPS_GRAV, active)
 
@@ -801,6 +860,16 @@ def device_busy(state, cfg, steps, label):
               for e in top), flush=True)
 
 
+def require_packs(launches, label):
+    """Every force launch, of whatever form, is preceded by one launch of
+    the `pack_force` kernel, and nothing else launches it."""
+    forces = sum(k for name, k in launches.items()
+                 if name.startswith("force_"))
+    require(launches["pack_force"] == forces,
+            f"{label}: pack_force counted {launches['pack_force']}, force "
+            f"kernels {forces}")
+
+
 def run_path(state, cfg, expect, label, check):
     """One main path: reset the counts, prime + warm-up + timed steps, read
     the counts and check them against `expect`; then `check` (health),
@@ -822,6 +891,7 @@ def run_path(state, cfg, expect, label, check):
     for name, count in expect.items():
         require(launches[name] == count,
                 f"{label}: {name} counted {launches[name]}, expected {count}")
+    require_packs(launches, label)
     check(state, warm, out, label)
     print_layers(layer_breakdown(out, cfg), label)
     device_busy(out, cfg, 5, label)
@@ -977,6 +1047,124 @@ def gated_grav_check(p, cfg, label, plain=True):
                                                               p.alive))
 
 
+def pack_kernel(p_dens, key, var, label):
+    """The `pack_force` kernel against its plain version, bit for bit, on
+    sorted particles that carry rho, P, omega and cs; returns (err, ms,
+    plain_ms, bound_ms, by), the bound from the bytes it reads and
+    writes."""
+    import torch
+    from summersph_tpu_torch.ops import cuda_pairs
+
+    ours = cuda_pairs.pack_force(p_dens, key, var)
+    plain = cuda_pairs.pack_force_plain(p_dens, key, var)
+    torch.cuda.synchronize()
+    err = 0.0
+    for c, (a, b) in enumerate(zip(ours, plain)):
+        if b is None:
+            require(a is None, f"pack_force output {c} ({label})")
+            continue
+        require(torch.equal(a, b),
+                f"pack_force output {c} differs from its plain version "
+                f"({label})")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    ms = cuda_ms(lambda: cuda_pairs.pack_force(p_dens, key, var), 10)
+    plain_ms = cuda_ms(lambda: cuda_pairs.pack_force_plain(p_dens, key, var),
+                       2)
+    n = p_dens.capacity
+    per_row = KERNELS["pack_force"][1] if var else 53 + 48
+    print(f"[{label}] pack_force ({'variable' if var else 'fixed'} h): equal "
+          f"to its plain version bit for bit; kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    return err, ms, plain_ms, per_row * n / PEAK_BYTES * 1e3, "bytes"
+
+
+def ragged_checks(dev, n_clump=16384):
+    """The force and gravity kernels on window shapes built to break a
+    queue or a tile loop (models/ragged.py) and on a clump of `n_clump`
+    particles with variable h: every form against the plain version in
+    float64 (`hold_exact`), two launches bit for bit, the fused form's SPH
+    sums bit for bit the unfused kernel's, `pack_force` bit for bit its
+    plain version."""
+    import torch
+    from summersph_tpu_torch.config import SimConfig
+    from summersph_tpu_torch.models import ragged
+    from summersph_tpu_torch.ops import cuda_pairs
+    from summersph_tpu_torch.ops.sorted_grid import sort_particles
+    from summersph_tpu_torch.state import Particles
+
+    def check(p, cfg, r_cut, label):
+        var = cfg.fixed_h is None
+        p2, grid = sort_particles(p, cfg)
+        p3 = cuda_pairs.pair_eval(p2, cfg, grid)[0]
+        r_cut = torch.as_tensor(r_cut, dtype=torch.float32, device=dev)
+        split = (r_cut / cfg.effective_rcut_rs(), r_cut)
+        require(float(r_cut) <= float(grid.cell_size),
+                f"{label}: r_cut {float(r_cut)} > cell")
+        p64, split64 = f64(p3), tuple(v.double() for v in split)
+        lengths = sorted(ragged.range_lengths(grid))
+        print(f"[{label}] range lengths {lengths[:8]} ... {lengths[-3:]}, "
+              f"largest group {int((grid.ends - grid.starts).sum(1).max())} "
+              f"candidates", flush=True)
+        pack_kernel(p3, grid.key, var, label)
+        unfused = None
+        for sp, sp64 in ((None, None), (split, split64)):
+            name = (f"force_{'var' if var else 'fixed'}_h"
+                    + ("_grav" if sp is not None else ""))
+            call = lambda sp=sp: cuda_pairs.force_sums(p3, cfg, grid, sp)
+            ours = flat(call())
+            hold_exact(name, ours,
+                       flat(cuda_pairs.force_sums_plain(p3, cfg, grid, sp)),
+                       flat(cuda_pairs.force_sums_plain(p64, cfg, grid,
+                                                        sp64)), label)
+            twice_bitwise(name, call, label)
+            if sp is None:
+                unfused = ours
+            else:
+                for c, (a, b) in enumerate(zip(ours[:5], unfused)):
+                    require(torch.equal(a, b),
+                            f"{name} output {c} differs from the unfused "
+                            f"kernel ({label})")
+        m = torch.where(p3.alive, p3.mass, 0.0)
+        call = lambda: cuda_pairs.grav_short_sums(p3.pos, m, p3.h, grid, cfg,
+                                                  split)
+        hold_exact("grav_short", call(),
+                   cuda_pairs.grav_short_sums_plain(p3.pos, m, p3.h, grid,
+                                                    cfg, split),
+                   cuda_pairs.grav_short_sums_plain(
+                       p3.pos.double(), m.double(), p3.h.double(), grid, cfg,
+                       split64), label)
+        twice_bitwise("grav_short", call, label)
+        return grid
+
+    for name in ragged.CASES:
+        case = ragged.ragged_case(name)
+        for var in (False, True):
+            cfg = SimConfig(fixed_h=None if var else case["h0"],
+                            neighbor_mode="sorted", sorted_block=128,
+                            window_group=32, gravity="pm")
+            p = Particles.create(
+                pos=case["pos"], vel=case["vel"], mass=case["mass"],
+                u=case["u"], h=case["h"] if var else case["h0"],
+                capacity=case["capacity"], device=dev)
+            grid = check(p, cfg, case["r_cut"],
+                         f"ragged {name} {'var' if var else 'fixed'} h")
+            if name == "clusters":
+                require({0, 1, 31, 32, 33, 129}
+                        <= ragged.range_lengths(grid),
+                        "the cluster case lost its hard range lengths")
+    # the clump: its core rows have ~10^4 candidates in many chunks, most
+    # of them pairs; h varies by 20% so that the j side reaches further
+    p = clustered(n_clump, dev)
+    h = 0.5 * (1.0 + 0.2 * torch.rand(
+        n_clump, device=dev, generator=torch.Generator(dev).manual_seed(5)))
+    rng_vel = torch.randn((n_clump, 3), device=dev,
+                          generator=torch.Generator(dev).manual_seed(6))
+    p = p.replace(h=h, vel=0.3 * rng_vel)
+    cfg = SimConfig(fixed_h=None, neighbor_mode="sorted", sorted_block=128,
+                    window_group=32, gravity="pm")
+    check(p, cfg, 1.0, f"ragged clump N={n_clump} var h")
+
+
 # ------------------------------------------------------- block timesteps
 
 def binned_start(state, cfg, bins, label):
@@ -1075,9 +1263,11 @@ def binned_path(state, cfg, bins, steps, per_substep, label, check,
     expect = {name: 0 for name in launches}
     expect.update({name: k * substeps for name, k in per_substep.items()})
     expect["mesh solves"] = 2 if cfg.gravity != "none" else 0
+    del expect["pack_force"]
     for name, count in expect.items():
         require(launches[name] == count,
                 f"{label}: {name} counted {launches[name]}, expected {count}")
+    require_packs(launches, label)
     advanced = float(out.t) - float(warm.t)
     print(f"[{label}] block steps: {steps[1]} base steps of {n_sub} substeps "
           f"timed, {wall / steps[1] * 1e3:.3f} ms per base step "
@@ -1406,6 +1596,7 @@ def main():
         require(none_launches[name] == 1 + 2 * STEPS,
                 f"{name} launched {none_launches[name]} times, expected "
                 f"{1 + 2 * STEPS}")
+    require_packs(none_launches, label)
     check_run(state, warm, out, label)
     print_layers(layer_breakdown(out, cfg), label)
     p2, grid = sort_particles(out.particles, cfg)
@@ -1486,6 +1677,9 @@ def main():
           f" max {int(ext.max())}; SPH cell {float(grid.cell_size):.4f}",
           flush=True)
     results.update(sph_kernels(p2, grid, cfg, label))
+    from summersph_tpu_torch.ops import cuda_pairs
+    results["pack_force"] = pack_kernel(
+        cuda_pairs.pair_eval(p2, cfg, grid)[0], grid.key, True, label)
     phase_done("11 (N=1048576, config 5)")
 
     # -- phase 12: the seven gated kernels at N = 131,072
@@ -1567,8 +1761,13 @@ def main():
              "sink_slots_full"))
     phase_done("15 (N=1048576, config 5 block steps)")
 
-    # -- phase 16: results
+    # -- phase 16: window shapes built to break the redesigned kernels
+    ragged_checks(dev)
+    phase_done("16 (ragged windows)")
+
+    # -- phase 17: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],
+                "pack_force": c5_launches["pack_force"],
                 "force_fixed_h": none_launches["force_fixed_h"],
                 "force_fixed_h_grav": fused_launches["force_fixed_h_grav"],
                 "grav_short": sep_launches["grav_short"],
@@ -1585,7 +1784,6 @@ def main():
             ("force_var_h_grav_gated", var_fused_b_launches)):
         launches[name] = counted[name]
         require(counted[name] > 0, f"{name} was never launched on its path")
-    from summersph_tpu_torch.ops import cuda_pairs
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": cuda_pairs.SOURCE,
          "replaces": replaces, "launches": launches[name],

@@ -17,9 +17,9 @@
 //   <name>_gated        <- each of the seven in its gated form (_gate_plan,
 //                          block timesteps): only the window groups on a
 //                          worklist are computed
+//   pack_force          <- _pack (the force kernels' per-particle records)
 // The variable-h forms are template instantiations of the fixed-h kernels
-// (VARH), the gated forms of the ungated ones (GATED); the fixed-h and the
-// ungated instantiations compile to the code they had.
+// (VARH), the gated forms of the ungated ones (GATED).
 //
 // Gating: the caller passes worklist [groups] (ids of the window groups
 // that hold an active row, compacted to the front) and count [1], both on
@@ -31,41 +31,78 @@
 // zero-filled outputs).  Only rows are gated, never columns: an active row
 // sums over every candidate, active or not.
 //
-// What bounds them: FP32 pair arithmetic.  Each row tests about 10^3
-// candidates (9 windows of ~100 candidates on the N = 1,048,576 disc; a
-// few thousand for the gravity windows, whose cells are r_cut wide), of
-// which a small share lies inside the support.  The bytes read are small
-// by comparison: one tile entry (20 bytes for the density and gravity
-// sums, 52 for the force) is read from device memory once per block and
-// serves all its rows.
+// What bounds them: FP32 scalar arithmetic and the instructions spent on
+// candidates that are rejected, not bytes.  Each row tests about 10^3
+// candidates (9 windows of ~100 candidates on the N = 1,048,576 disc;
+// about 2,600 for the gravity windows, whose cells are r_cut wide), of
+// which 6-15% lie inside the support.  The bytes are small by comparison: a
+// 16-byte candidate record is read from device memory once per block and
+// serves all its rows.  The sums are ragged, data-dependent scalar FP32
+// work with divisions, an rsqrt and an exp per pair: wgmma, TMA tiles and
+// the tensor cores have no use here.
 //
-// Design: one CUDA block per window group of `wg` consecutive sorted rows,
-// one thread per row.  For each of the 9 plane offsets the block walks the
-// group's whole candidate range [starts[g, o], ends[g, o]) in tiles of
-// TILE candidates staged through shared memory (every thread of the block
-// reads the same tile entry, a broadcast without bank conflicts).  Each
-// thread applies its own row's exact key mask k_j in [k_i + off - 1,
-// k_i + off + 1], skips candidates outside the support before any
-// division, and accumulates in registers.  The tile loop runs for any
-// range length, so a clustered core with 10^5 candidates per range is
-// summed whole.  Because the kernels cover every [start, end), no
-// candidate is ever dropped (the TPU kernels' fixed window sizes could
-// drop some and counted them in window_overflow).
+// The density kernels (density_kernel) keep the first design: one thread
+// per row, every thread of the block walking every staged candidate in
+// turn, so a lane that rejects a candidate waits while another lane of its
+// warp runs the pair arithmetic.
+//
+// The force and gravity kernels (force_kernel, grav_short_kernel) split
+// the candidate test from the pair arithmetic:
+//  - A block of NW = 8 warps owns one window group of `wg` consecutive
+//    sorted rows (the block size is the kernel's own constant, not wg);
+//    the group's rows are staged in shared memory once, and a warp takes
+//    ROWS of them at a time (2 for the force, 4 for gravity).
+//  - The group's 9 candidate ranges [starts[g, o], ends[g, o]), laid end to
+//    end, are staged through shared memory in chunks of CHUNK = 1024
+//    candidates as 16-byte records (x, y, z, key bits), with the range's
+//    plane offset taken off the key, so that a row tests one key window
+//    whatever range a candidate came from; the variable-h force kernel
+//    stages 4 h_j^2 beside them, gravity m_j.  A typical SPH group fits
+//    one chunk; any range length is walked whole, so no candidate is ever
+//    dropped (the TPU kernels' fixed window sizes could drop some and
+//    counted them in window_overflow).  Staging goes through registers
+//    (the key is rewritten on the way), in one flat loop with all of a
+//    thread's loads in flight; four or five blocks are resident on an SM,
+//    so one block's staging overlaps the others' arithmetic, and there is
+//    no second buffer inside a block, which would cost a resident block.
+//  - Phase A, on every lane: the 32 lanes of a warp test 32 candidates per
+//    load against the warp's ROWS rows, whose data are uniform registers:
+//    the row's exact key mask k_j in [k_i + off - 1, k_i + off + 1], dx,
+//    dy, dz, r^2 and the cutoff compare.  A survivor sets one bit of the
+//    lane's 32-bit mask for that row: no ballot, no queue traffic per
+//    test.  (A first version compacted survivors with __ballot_sync /
+//    __popc after every 32 candidates; that cost more than the test.)
+//  - Phase B, on full warps, a row at a time: `compact` lays the set bits
+//    of all lanes into the warp's queue in shared memory (one prefix sum
+//    over the lanes' counts), then each lane takes queued candidates and
+//    runs the whole pair arithmetic, reading x, y, z from the staged
+//    record and, for the force, one 32-byte record of the other fields (v,
+//    m, pterm_j, rho, cs, alpha; with variable h 64 bytes, with h_j, 1 /
+//    h_j, 1 / (pi h_j^4)) by index.  Those per-particle factors (pterm_j =
+//    P_j / max(Omega_j rho_j^2, 1e-30), the powers of h_j) are formed once
+//    per launch by pack_force_kernel, not per pair.
+//  - Each lane keeps its own partial sums; one __shfl_xor_sync tree per
+//    output ends the row's chunk, and lane 0 writes the row (adds to it
+//    for a later chunk).  No float atomics: the bits of a row depend only
+//    on its group's ranges, never on block placement or on gating, so two
+//    launches agree bit for bit and a gated form equals its ungated one.
+//  - The fused forms keep two masks, one for the SPH pairs (r^2 < 4 h^2,
+//    or 4 max(h_i, h_j)^2) and one for the gravity pairs (0 < r^2 <
+//    r_cut^2), and the force arithmetic spells out its fused multiply-adds,
+//    so their SPH sums are the unfused kernel's bit for bit.
 //
 // The pair algebra follows the Pallas kernels term by term: the
 // rsqrt(max(r^2, 1e-12)) form, the r^2 > 0 self exclusion in the density
 // and gravity sums, the single-dW fixed-h force algebra and the two-dW
 // variable-h one, the 1e-30 denominator guards, grav_shape for the spline
 // softening and the Abramowitz-Stegun erf (erf_approx), not erff.  With
-// variable h a force pair contributes while r < 2 max(h_i, h_j), so the
-// force kernels skip per pair at max(4 h_i^2, 4 h_j^2) (and r_cut^2 when
-// fused), never at 4 h_i^2 alone, which would drop the j-side term of every
-// pair with h_j > h_i.  The j-side h, its reciprocal, 4 h_j^2 and
-// 1 / (pi h_j^4) are formed once per tile entry, not once per pair.  The
-// gravity split scalars (r_s, r_cut) change every step; the kernels read
-// them from a two-float device buffer, as the Pallas kernels read them
-// from the pack's pad rows, so the host never waits for them.  Every entry
-// point launches on the caller's stream, allocates nothing, and returns
+// variable h a force pair contributes while r < 2 max(h_i, h_j), so phase
+// A cuts at max(4 h_i^2, 4 h_j^2), never at 4 h_i^2 alone, which would
+// drop the j-side term of every pair with h_j > h_i.  The gravity split
+// scalars (r_s, r_cut) change every step; the kernels read them from a
+// two-float device buffer, as the Pallas kernels read them from the pack's
+// pad rows, so the host never waits for them.  Every entry point launches
+// on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -237,284 +274,573 @@ __global__ void density_kernel(
   }
 }
 
+// ------------------------------------------------------------------------
+// The warp-per-row machinery of the force and gravity kernels (see the note
+// at the top): chunk staging, the candidate test, the survivor queue, the
+// row sums.
+
+constexpr int NW = 8;                // warps per block
+constexpr int NT = NW * 32;          // threads per block
+constexpr int CHUNK = 1024;          // candidates staged at a time: one bit
+                                     // per candidate in a lane's 32-bit mask
+constexpr int ROWS_FORCE = 2;        // rows a warp tests per candidate load
+constexpr int ROWS_GRAV = 4;
+constexpr int WG_MAX = 128;          // rows of a window group, at most
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int KEY_NEVER = (int)0x80000000;  // a staged key no row accepts
+
+// r^2 with its rounding spelled out, so that the candidate test (phase A)
+// and the pair arithmetic (phase B) of every instantiation see one value.
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
+
+// a b + c d + e f, and the force kernel's dw_shape, with every fused
+// multiply-add spelled out: the compiler contracts a * b + c by context,
+// and the fused and unfused force kernels must agree bit for bit.
+__device__ __forceinline__ float fma3(float a, float b, float c, float d,
+                                      float e, float f) {
+  return __fmaf_rn(e, f, __fmaf_rn(c, d, __fmul_rn(a, b)));
+}
+
+__device__ __forceinline__ float dw_shape_rn(float q) {
+  if (q <= 1.0f) return __fmaf_rn(2.25f * q, q, -3.0f * q);
+  if (q <= 2.0f) {
+    const float t = __fsub_rn(2.0f, q);
+    return -0.75f * t * t;
+  }
+  return 0.0f;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL_MASK, v, d);
+  return v;
+}
+
+// Lane 0 writes a row's sum: the first chunk stores, a later one adds (the
+// same thread wrote the row before, so it reads its own store).
+__device__ __forceinline__ void store_row(float* __restrict__ out, int i,
+                                          float v, bool first) {
+  out[i] = first ? v : out[i] + v;
+}
+
+// The block's group: its 9 ranges into shared memory (ends clamped to the
+// starts).  The caller synchronises the block before total_candidates.
+__device__ __forceinline__ void load_ranges(const int* __restrict__ starts,
+                                            const int* __restrict__ ends,
+                                            int g, int* s_s, int* s_e) {
+  if (threadIdx.x < 9) {
+    const int s = starts[g * 9 + threadIdx.x];
+    s_s[threadIdx.x] = s;
+    s_e[threadIdx.x] = max(ends[g * 9 + threadIdx.x], s);
+  }
+}
+
+__device__ __forceinline__ int total_candidates(const int* s_s,
+                                                const int* s_e) {
+  int total = 0;
+#pragma unroll
+  for (int o = 0; o < 9; ++o) total += s_e[o] - s_s[o];
+  return total;
+}
+
+// Stage the candidates at positions [lo, lo + CHUNK) of the 9 ranges laid
+// end to end, in that order; the slots up to the next multiple of 128 (the
+// candidate test is unrolled by 4 x 32) get a record no row accepts.  srec
+// gets (x, y, z, key - plane offset of the candidate's range), so that
+// every row tests one key window [k_i - 1, k_i + 1] whatever range a
+// candidate came from; sidx (if not null) its index in the sorted arrays;
+// sextra (if not null) extra[index] (4 h_j^2 for the variable-h force, m_j
+// for gravity).  One flat loop, so that all of a thread's loads are in
+// flight together.  Returns the number of 32-candidate tests; the caller
+// synchronises the block afterwards.
+__device__ __forceinline__ int stage_chunk(
+    const int* s_s, const int* s_e, int lo, int total, float4* srec,
+    int* sidx, float* sextra, const float4* __restrict__ geo,
+    const float* __restrict__ extra) {
+  const int cnt = max(min(CHUNK, total - lo), 0);
+  const int n_it = (cnt + 127) / 128 * 4;
+  for (int q = threadIdx.x; q < 32 * n_it; q += NT) {
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(KEY_NEVER));
+    int src = 0;
+    float ex = 0.0f;
+    if (q < cnt) {
+      // the range o that holds flat position lo + q
+      const int pos = lo + q;
+      int o = 0, cum = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int len = s_e[k] - s_s[k];
+        if (o == k && pos >= cum + len) {
+          cum += len;
+          o = k + 1;
+        }
+      }
+      src = s_s[o] + (pos - cum);
+      c = geo[src];
+      c.w = __int_as_float(__float_as_int(c.w) - plane_offset(o));
+      if (sextra != nullptr) ex = extra[src];
+    }
+    srec[q] = c;
+    if (sidx != nullptr) sidx[q] = src;
+    if (sextra != nullptr) sextra[q] = ex;
+  }
+  return n_it;
+}
+
+// In test k of a chunk, lane l takes the candidate in slot 32 k + (l + k /
+// 4) % 32: the warp reads 32 consecutive records, and the slots of one
+// lane's candidates rotate through the banks (one step every four tests,
+// the unrolled stretch, so the rotation costs the test next to nothing),
+// so that phase B reads a run of one lane's survivors (a dense clump,
+// where nearly all survive) in as few passes as 32 scattered records take.
+__device__ __forceinline__ int slot_of(int k, int lane) {
+  return 32 * k + ((lane + (k >> 2)) & 31);
+}
+
+// Phase A's result for one row is a 32-bit mask per lane: bit k is set
+// when the lane's candidate of test k (slot_of(k, lane)) survived.  compact lays
+// the survivors' positions into the warp's queue in shared memory (lane 0's
+// in ascending order, then lane 1's, ...) and returns how many there are,
+// so that phase B runs one queued pair per lane on full warps.
+__device__ __forceinline__ int compact(unsigned mask, unsigned short* slot,
+                                       int lane) {
+  __syncwarp();  // the queue's last readers are done
+  const int mine = __popc(mask);
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int below = __shfl_up_sync(FULL_MASK, incl, d);
+    if (lane >= d) incl += below;
+  }
+  const int total = __shfl_sync(FULL_MASK, incl, 31);
+  int w = incl - mine;
+  while (mask != 0u) {
+    const int k = __ffs((int)mask) - 1;
+    mask &= mask - 1u;
+    slot[w++] = (unsigned short)slot_of(k, lane);
+  }
+  __syncwarp();
+  return total;
+}
+
+// The force kernels' per-particle records, formed once per launch (the
+// counterpart of the TPU pack, pallas_pairs.py _pack: there a [F, N] slab
+// with the key's bits in a float row for the DMA, here records a lane
+// loads 16 bytes at a time): geo[i] = (x, y, z, key bits) for the
+// candidate test, and for the pair arithmetic one record attr[i] that lies
+// in one 32-byte sector of device memory (with VARH in two): vm = (vx, vy,
+// vz, m with 0 on dead rows), thermo = (P / max(Omega rho^2, 1e-30), rho,
+// cs, alpha) and, with VARH, hrec = (h, 1 / h, 1 / (pi h^4), 4 h^2) and
+// four floats of padding; sup2[i] = 4 h^2 again, contiguous, for staging.
+// Bound by bytes: 53 read and 48 written per particle (VARH 57 and 84).
+constexpr int ATTR_FIXED = 2, ATTR_VAR = 4;   // float4s per attr record
+
+template <bool VARH>
+__global__ void pack_force_kernel(
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const float* __restrict__ mass, const unsigned char* __restrict__ alive,
+    const float* __restrict__ h, const int* __restrict__ key,
+    const float* __restrict__ pres, const float* __restrict__ rho,
+    const float* __restrict__ omega, const float* __restrict__ cs,
+    const float* __restrict__ alpha, float4* __restrict__ geo,
+    float4* __restrict__ attr, float* __restrict__ sup2, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  geo[i] = make_float4(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2],
+                       __int_as_float(key[i]));
+  float4* a = attr + (VARH ? ATTR_VAR : ATTR_FIXED) * i;
+  a[0] = make_float4(vel[3 * i], vel[3 * i + 1], vel[3 * i + 2],
+                     alive[i] ? mass[i] : 0.0f);
+  const float r = rho[i];
+  a[1] = make_float4(pres[i] / fmaxf(omega[i] * r * r, 1.0e-30f), r, cs[i],
+                     alpha[i]);
+  if constexpr (VARH) {
+    const float hc = h[i];
+    const float ihc = 1.0f / hc;
+    const float s2 = 4.0f * hc * hc;
+    a[2] = make_float4(hc, ihc, (INV_PI * ihc * ihc) * (ihc * ihc), s2);
+    a[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    sup2[i] = s2;
+  }
+}
+
+// One row of the force kernel: its data, uniform over the warp, and this
+// lane's partial sums.  attr holds the per-particle records of
+// pack_force_kernel: vm, thermo and, with VARH, hrec.
+template <bool VARH>
+struct ForceRow {
+  float x, y, z, vx, vy, vz, h, inv_h, inv_pi_h4, av_h2;
+  float rho, pterm, cs, alpha;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f, du = 0.0f, araw = 0.0f;
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+
+  // From the row's staged records: c = (x, y, z, key bits), vr = (vx, vy,
+  // vz, rho), t = (pterm_i, cs, alpha, h).
+  __device__ __forceinline__ void load(const float4 c, const float4 vr,
+                                       const float4 t, float av_eps) {
+    x = c.x, y = c.y, z = c.z;
+    vx = vr.x, vy = vr.y, vz = vr.z, rho = vr.w;
+    pterm = t.x, cs = t.y, alpha = t.z, h = t.w;
+    inv_h = 1.0f / h;
+    inv_pi_h4 = INV_PI * inv_h * inv_h * inv_h * inv_h;
+    av_h2 = av_eps * h * h;
+  }
+
+  // Pressure + Monaghan viscosity of the pair (row, j), j = sorted index
+  // of the candidate staged as c.  Without VARH (fixed h, h_j == h_i) one
+  // dW serves both sides.  VARH is the grad-h form: dW_i = w'(r/h_i) / (pi
+  // h_i^4), dW_j = w'(r/h_j) / (pi h_j^4), their mean dWbar in the viscous
+  // and heating terms, hbar = (h_i + h_j) / 2 in mu and in av_eps hbar^2.
+  // Self pairs vanish without a guard: dw(0) == 0 and vdotr == 0.  While
+  // the queue holds more than a warp's worth, phase B runs two queued
+  // pairs per lane at a time, to have both pairs' reads in flight; a lane
+  // without a second pair repeats its first with `live` false, which adds
+  // zeros.
+  __device__ __forceinline__ void sph_pair(
+      const float4 c, int j, bool live, const float4* __restrict__ attr,
+      float av_eps, float beta_factor) {
+    const float4* a = attr + (VARH ? ATTR_VAR : ATTR_FIXED) * j;
+    const float4 v = a[0];
+    const float4 t = a[1];
+    const float dx = x - c.x;
+    const float dy = y - c.y;
+    const float dz = z - c.z;
+    const float r2 = dist2(dx, dy, dz);
+    const float inv_r = rsqrtf(fmaxf(r2, 1.0e-12f));
+    const float r = r2 * inv_r;
+    const float mj = live ? v.w : 0.0f;  // every term carries m_j
+    const float dvx = vx - v.x;
+    const float dvy = vy - v.y;
+    const float dvz = vz - v.z;
+    const float vdotr = fma3(dvx, dx, dvy, dy, dvz, dz);
+    const float cbar = 0.5f * (cs + t.z);
+    const float abar = 0.5f * (alpha + t.w);
+    const float rhobar = 0.5f * (rho + t.y);
+    float dw_i = dw_shape_rn(r * inv_h) * inv_pi_h4;
+    float dw_j = dw_i, dwbar = dw_i, hbar = h, av_hbar2 = av_h2;
+    if constexpr (VARH) {
+      const float4 hj = a[2];
+      dw_j = dw_shape_rn(r * hj.y) * hj.z;
+      dwbar = 0.5f * (dw_i + dw_j);
+      hbar = 0.5f * (h + hj.x);
+      av_hbar2 = av_eps * hbar * hbar;
+    }
+    const float mu = hbar * fminf(vdotr, 0.0f) / __fadd_rn(r2, av_hbar2);
+    const float visc =
+        __fmaf_rn(beta_factor * abar * mu, mu, -abar * cbar * mu)
+        / fmaxf(rhobar, 1.0e-30f);
+    // with fixed h: (pterm_i + pterm_j + visc) dW, one dW for both sides
+    const float scal =
+        VARH ? __fmaf_rn(visc, dwbar,
+                         __fmaf_rn(t.x, dw_j, __fmul_rn(pterm, dw_i)))
+             : (pterm + t.x + visc) * dw_i;
+    const float coef = -mj * scal * inv_r;
+    ax = __fmaf_rn(coef, dx, ax);
+    ay = __fmaf_rn(coef, dy, ay);
+    az = __fmaf_rn(coef, dz, az);
+    const float vgw = vdotr * inv_r * dwbar;
+    du = __fmaf_rn(mj * vgw, __fmaf_rn(0.5f, visc, pterm), du);
+    araw = __fmaf_rn(mj, vgw, araw);
+  }
+
+  // The short-range gravity of the pair (row, candidate c of mass mj),
+  // 0 < r < r_cut (FUSE).
+  __device__ __forceinline__ void grav_pair(const float4 c, float mj,
+                                            const GravSplit& gs) {
+    const float dx = x - c.x;
+    const float dy = y - c.y;
+    const float dz = z - c.z;
+    const float r2 = dist2(dx, dy, dz);
+    const float inv_r = rsqrtf(fmaxf(r2, 1.0e-12f));
+    const float gc = gs.coef(r2 * inv_r, inv_r, inv_h, mj);
+    gx += gc * dx;
+    gy += gc * dy;
+    gz += gc * dz;
+  }
+};
+
 // (ax, ay, az, du, alpha_raw)[i]: pressure + Monaghan viscosity summed
-// over the 9 windows.  pterm_j = P_j / max(Omega_j rho_j^2, 1e-30) is
-// formed once per tile entry.  Without VARH (fixed h, h_j == h_i) one dW
-// serves both sides.  VARH is the grad-h form: dW_i = w'(r/h_i) / (pi
-// h_i^4), dW_j = w'(r/h_j) / (pi h_j^4), their mean dWbar in the viscous
-// and heating terms, hbar = (h_i + h_j) / 2 in mu and in av_eps hbar^2;
-// h_j, 1 / h_j, 1 / (pi h_j^4) and 4 h_j^2 are staged per tile entry, and
-// a pair is skipped only beyond max(4 h_i^2, 4 h_j^2).
-// FUSE adds (gx, gy, gz)[i], the short-range gravity sums over the same
-// candidates for 0 < r < r_cut (the Pallas fuse_grav form).  Its early
-// skip is then at max(that support, r_cut^2), so the gravity sums equal
-// the Pallas ones even on a step whose r_cut exceeds the SPH cell (a step
+// over the 9 windows; the pairs inside 2 h (VARH: inside 2 max(h_i, h_j),
+// read from the staged 4 h_j^2).  FUSE adds (gx, gy, gz)[i], the
+// short-range gravity sums over the same candidates for 0 < r < r_cut (the
+// Pallas fuse_grav form), from a second mask of the same test; they equal
+// the Pallas sums even on a step whose r_cut exceeds the SPH cell (a step
 // integrate.py reports in the grav_window_overflow slot).  Without FUSE
-// the split and gravity outputs are unused and the code is the plain
-// force kernel's; without VARH it is the fixed-h kernel's.
+// the split and gravity outputs are unused.
 template <bool VARH, bool FUSE, bool GATED>
-__global__ void force_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, const float* __restrict__ vx,
-    const float* __restrict__ vy, const float* __restrict__ vz,
-    const float* __restrict__ m, const float* __restrict__ h,
-    const int* __restrict__ key, const float* __restrict__ pres,
-    const float* __restrict__ rho, const float* __restrict__ omega,
-    const float* __restrict__ cs, const float* __restrict__ alpha,
+__global__ void __launch_bounds__(NT) force_kernel(
+    const float4* __restrict__ geo, const float4* __restrict__ attr,
+    const float* __restrict__ sup2, const float* __restrict__ h,
+    const float* __restrict__ pres, const float* __restrict__ omega,
     const int* __restrict__ starts, const int* __restrict__ ends,
     float* __restrict__ out_ax, float* __restrict__ out_ay,
     float* __restrict__ out_az, float* __restrict__ out_du,
     float* __restrict__ out_araw, const float* __restrict__ split,
     float* __restrict__ out_gx, float* __restrict__ out_gy,
-    float* __restrict__ out_gz, int n, float av_eps, float beta_factor,
+    float* __restrict__ out_gz, int wg, float av_eps, float beta_factor,
     const int* __restrict__ worklist, const int* __restrict__ count) {
-  constexpr int VT = VARH ? TILE : 1;
-  __shared__ float sx[TILE], sy[TILE], sz[TILE];
-  __shared__ float svx[TILE], svy[TILE], svz[TILE];
-  __shared__ float sm[TILE], spt[TILE], srho[TILE], scs[TILE], sal[TILE];
-  __shared__ int sk[TILE];
-  __shared__ float sh[VT], sinv_h[VT], sinv_pi_h4[VT], ssup2[VT];
+  constexpr int ROWS_A = ROWS_FORCE;
+  __shared__ float4 srec[CHUNK];
+  __shared__ int sidx[CHUNK];
+  __shared__ float ssup[VARH ? CHUNK : 1];
+  __shared__ unsigned short squeue[NW][CHUNK];
+  __shared__ float4 s_rgeo[WG_MAX], s_rvr[WG_MAX], s_rt[WG_MAX];
+  __shared__ int s_s[9], s_e[9];
 
   const int g = owned_group<GATED>(worklist, count);
   if constexpr (GATED) {
     if (g < 0) return;
   }
-  const int i = g * blockDim.x + threadIdx.x;
-  const bool row = i < n;
-  const float xi = row ? x[i] : 0.0f;
-  const float yi = row ? y[i] : 0.0f;
-  const float zi = row ? z[i] : 0.0f;
-  const float vxi = row ? vx[i] : 0.0f;
-  const float vyi = row ? vy[i] : 0.0f;
-  const float vzi = row ? vz[i] : 0.0f;
-  const float hi = row ? h[i] : 1.0f;
-  const float rhoi = row ? rho[i] : 1.0f;
-  const float pterm_i = row ? pres[i] / (omega[i] * rhoi * rhoi) : 0.0f;
-  const float csi = row ? cs[i] : 0.0f;
-  const float ali = row ? alpha[i] : 0.0f;
-  const int ki = row ? key[i] : 0;
-  const float inv_hi = 1.0f / hi;
-  const float inv_pi_hi4 = INV_PI * inv_hi * inv_hi * inv_hi * inv_hi;
-  const float support2 = 4.0f * hi * hi;
-  const float av_h2 = av_eps * hi * hi;
-  float cutoff2 = support2;
-  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  load_ranges(starts, ends, g, s_s, s_e);
+  if ((int)threadIdx.x < wg) {
+    // the group's rows; a row's own pressure term carries no guard
+    // (pterm_j does)
+    const int i = g * wg + threadIdx.x;
+    const float4 v = attr[(VARH ? ATTR_VAR : ATTR_FIXED) * i];
+    const float4 t = attr[(VARH ? ATTR_VAR : ATTR_FIXED) * i + 1];
+    s_rgeo[threadIdx.x] = geo[i];
+    s_rvr[threadIdx.x] = make_float4(v.x, v.y, v.z, t.y);
+    s_rt[threadIdx.x] = make_float4(pres[i] / (omega[i] * t.y * t.y), t.z,
+                                    t.w, h[i]);
+  }
+  __syncthreads();
+  const int total = total_candidates(s_s, s_e);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned short* queue = squeue[warp];
   GravSplit gs;
-  if constexpr (FUSE) {
-    gs.load(split);
-    cutoff2 = fmaxf(support2, gs.rcut2);
-  }
+  if constexpr (FUSE) gs.load(split);
 
-  float ax = 0.0f, ay = 0.0f, az = 0.0f, du = 0.0f, araw = 0.0f;
-  for (int o = 0; o < 9; ++o) {
-    const int s = starts[g * 9 + o];
-    const int e = ends[g * 9 + o];
-    const int lo = ki + plane_offset(o) - 1;
-    const int hk = ki + plane_offset(o) + 1;
-    for (int base = s; base < e; base += TILE) {
-      const int cnt = min(TILE, e - base);
-      for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-        const int c = base + j;
-        sx[j] = x[c];
-        sy[j] = y[c];
-        sz[j] = z[c];
-        svx[j] = vx[c];
-        svy[j] = vy[c];
-        svz[j] = vz[c];
-        sm[j] = m[c];
-        const float rc = rho[c];
-        spt[j] = pres[c] / fmaxf(omega[c] * rc * rc, 1.0e-30f);
-        srho[j] = rc;
-        scs[j] = cs[c];
-        sal[j] = alpha[c];
-        sk[j] = key[c];
-        if constexpr (VARH) {
-          const float hc = h[c];
-          const float ihc = 1.0f / hc;
-          sh[j] = hc;
-          sinv_h[j] = ihc;
-          sinv_pi_h4[j] = (INV_PI * ihc * ihc) * (ihc * ihc);
-          ssup2[j] = 4.0f * hc * hc;
-        }
+  int lo = 0;
+  do {
+    // n_it tests of 32 candidates
+    const int n_it = stage_chunk(s_s, s_e, lo, total, srec, sidx,
+                                 VARH ? ssup : nullptr, geo, sup2);
+    __syncthreads();
+    for (int r0 = warp * ROWS_A; r0 < wg; r0 += NW * ROWS_A) {
+      // phase A: every lane tests its candidates against ROWS_A rows
+      float rx[ROWS_A], ry[ROWS_A], rz[ROWS_A], rsup[ROWS_A];
+      int rkey[ROWS_A];
+      unsigned in_sph[ROWS_A], in_grav[ROWS_A];
+#pragma unroll
+      for (int u = 0; u < ROWS_A; ++u) {
+        const int r = min(r0 + u, wg - 1);
+        const float4 c = s_rgeo[r];
+        const float hi = s_rt[r].w;
+        rx[u] = c.x, ry[u] = c.y, rz[u] = c.z;
+        rkey[u] = __float_as_int(c.w) - 1;
+        rsup[u] = 4.0f * hi * hi;
+        in_sph[u] = 0u, in_grav[u] = 0u;
       }
-      __syncthreads();
-      for (int j = 0; j < cnt; ++j) {
-        const int kj = sk[j];
-        if (kj < lo || kj > hk) continue;
-        const float dx = xi - sx[j];
-        const float dy = yi - sy[j];
-        const float dz = zi - sz[j];
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        // dw_shape vanishes beyond 2h, and so does every SPH term below;
-        // with variable h beyond 2 max(h_i, h_j)
-        float sph2 = support2;
-        float cut2 = cutoff2;
-        if constexpr (VARH) {
-          sph2 = fmaxf(support2, ssup2[j]);
-          cut2 = fmaxf(cutoff2, ssup2[j]);
-        }
-        if (!(r2 < cut2)) continue;
-        const float inv_r = rsqrtf(fmaxf(r2, 1.0e-12f));
-        const float r = r2 * inv_r;
-        const float mj = sm[j];
-        if constexpr (FUSE) {
-          if (r2 > 0.0f && r2 < gs.rcut2) {
-            const float gc = gs.coef(r, inv_r, inv_hi, mj);
-            gx += gc * dx;
-            gy += gc * dy;
-            gz += gc * dz;
+      for (int k0 = 0; k0 < n_it; k0 += 4) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int at = slot_of(k0 + kk, lane);
+          const unsigned bit = 1u << (k0 + kk);
+          const float4 c = srec[at];
+          const int kj = __float_as_int(c.w);
+          float sup_j = 0.0f;
+          if constexpr (VARH) sup_j = ssup[at];
+#pragma unroll
+          for (int u = 0; u < ROWS_A; ++u) {
+            const float r2 = dist2(rx[u] - c.x, ry[u] - c.y, rz[u] - c.z);
+            // k_j in [k_i + off - 1, k_i + off + 1]
+            const bool in_key = (unsigned)kj - (unsigned)rkey[u] <= 2u;
+            // dw_shape vanishes beyond 2h, and so does every SPH term;
+            // with variable h beyond 2 max(h_i, h_j)
+            const float sph2 = VARH ? fmaxf(rsup[u], sup_j) : rsup[u];
+            if (in_key && r2 < sph2) in_sph[u] |= bit;
+            if constexpr (FUSE) {
+              if (in_key && r2 > 0.0f && r2 < gs.rcut2) in_grav[u] |= bit;
+            }
           }
-          if (!(r2 < sph2)) continue;
-        }
-        if constexpr (VARH) {
-          const float dw_i = dw_shape(r * inv_hi) * inv_pi_hi4;
-          const float dw_j = dw_shape(r * sinv_h[j]) * sinv_pi_h4[j];
-          const float dwbar = 0.5f * (dw_i + dw_j);
-          const float dvx = vxi - svx[j];
-          const float dvy = vyi - svy[j];
-          const float dvz = vzi - svz[j];
-          const float vdotr = dvx * dx + dvy * dy + dvz * dz;
-          const float hbar = 0.5f * (hi + sh[j]);
-          const float mu = hbar * fminf(vdotr, 0.0f)
-                           / (r2 + av_eps * hbar * hbar);
-          const float cbar = 0.5f * (csi + scs[j]);
-          const float abar = 0.5f * (ali + sal[j]);
-          const float rhobar = 0.5f * (rhoi + srho[j]);
-          const float visc = (-abar * cbar * mu + beta_factor * abar * mu * mu)
-                             / fmaxf(rhobar, 1.0e-30f);
-          // self pairs vanish without a guard: dw(0) == 0 and vdotr == 0
-          const float scal = pterm_i * dw_i + spt[j] * dw_j + visc * dwbar;
-          const float coef = -mj * scal * inv_r;
-          ax += coef * dx;
-          ay += coef * dy;
-          az += coef * dz;
-          const float vgw = vdotr * inv_r * dwbar;
-          du += mj * vgw * (pterm_i + 0.5f * visc);
-          araw += mj * vgw;
-        } else {
-          const float dw = dw_shape(r * inv_hi) * inv_pi_hi4;
-          const float dvx = vxi - svx[j];
-          const float dvy = vyi - svy[j];
-          const float dvz = vzi - svz[j];
-          const float vdotr = dvx * dx + dvy * dy + dvz * dz;
-          const float mu = hi * fminf(vdotr, 0.0f) / (r2 + av_h2);
-          const float cbar = 0.5f * (csi + scs[j]);
-          const float abar = 0.5f * (ali + sal[j]);
-          const float rhobar = 0.5f * (rhoi + srho[j]);
-          const float visc = (-abar * cbar * mu + beta_factor * abar * mu * mu)
-                             / fmaxf(rhobar, 1.0e-30f);
-          // self pairs vanish without a guard: dw(0) == 0 and vdotr == 0
-          const float coef = -mj * ((pterm_i + spt[j] + visc) * dw) * inv_r;
-          ax += coef * dx;
-          ay += coef * dy;
-          az += coef * dz;
-          const float vgw = vdotr * inv_r * dw;
-          du += mj * vgw * (pterm_i + 0.5f * visc);
-          araw += mj * vgw;
         }
       }
-      __syncthreads();
+      // phase B, a row at a time: the survivors on full warps
+#pragma unroll
+      for (int u = 0; u < ROWS_A; ++u) {
+        if (r0 + u >= wg) break;
+        const int i = g * wg + r0 + u;
+        ForceRow<VARH> row;
+        row.load(s_rgeo[r0 + u], s_rvr[r0 + u], s_rt[r0 + u], av_eps);
+        const int n_sph = compact(in_sph[u], queue, lane);
+        for (int t0 = 0; t0 < n_sph; t0 += 64) {
+          const int t = t0 + lane;
+          if (t0 + 32 < n_sph) {  // two rounds' worth: both in flight
+            const bool two = t + 32 < n_sph;
+            const int at0 = queue[t], at1 = queue[two ? t + 32 : t];
+            const float4 c0 = srec[at0], c1 = srec[at1];
+            const int j0 = sidx[at0], j1 = sidx[at1];
+            row.sph_pair(c0, j0, true, attr, av_eps, beta_factor);
+            row.sph_pair(c1, j1, two, attr, av_eps, beta_factor);
+          } else if (t < n_sph) {
+            const int at = queue[t];
+            row.sph_pair(srec[at], sidx[at], true, attr, av_eps,
+                         beta_factor);
+          }
+        }
+        float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+        if constexpr (FUSE) {
+          const int n_grav = compact(in_grav[u], queue, lane);
+          constexpr int stride = VARH ? ATTR_VAR : ATTR_FIXED;
+          for (int t = lane; t < n_grav; t += 32) {
+            const int at = queue[t];
+            row.grav_pair(srec[at], attr[stride * sidx[at]].w, gs);
+          }
+          gx = warp_sum(row.gx), gy = warp_sum(row.gy);
+          gz = warp_sum(row.gz);
+        }
+        const float ax = warp_sum(row.ax), ay = warp_sum(row.ay);
+        const float az = warp_sum(row.az), du = warp_sum(row.du);
+        const float araw = warp_sum(row.araw);
+        if (lane == 0) {
+          const bool first = lo == 0;
+          store_row(out_ax, i, ax, first);
+          store_row(out_ay, i, ay, first);
+          store_row(out_az, i, az, first);
+          store_row(out_du, i, du, first);
+          store_row(out_araw, i, araw, first);
+          if constexpr (FUSE) {
+            store_row(out_gx, i, gx, first);
+            store_row(out_gy, i, gy, first);
+            store_row(out_gz, i, gz, first);
+          }
+        }
+      }
     }
-  }
-  if (row) {
-    out_ax[i] = ax;
-    out_ay[i] = ay;
-    out_az[i] = az;
-    out_du[i] = du;
-    out_araw[i] = araw;
-    if constexpr (FUSE) {
-      out_gx[i] = gx;
-      out_gy[i] = gy;
-      out_gz[i] = gz;
-    }
-  }
+    __syncthreads();
+    lo += CHUNK;
+  } while (lo < total);
 }
 
 // (gx, gy, gz)[i] = sum_j -G m_j [f(r_ij / h_i) - S(r_ij)] r_ij / r_ij^3
 // over 0 < r_ij < r_cut: the TreePM short-range complement, on the
-// gravity sort (cells r_cut wide, ops/pm_gravity.py pm_short_range).
+// gravity sort (cells r_cut wide, ops/pm_gravity.py pm_short_range).  geo
+// holds (x, y, z, key bits); m is the masked mass, staged beside the
+// candidates, so the pair arithmetic reads shared memory only.
 template <bool GATED>
-__global__ void grav_short_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, const float* __restrict__ m,
-    const float* __restrict__ h, const int* __restrict__ key,
-    const int* __restrict__ starts, const int* __restrict__ ends,
-    const float* __restrict__ split, float* __restrict__ out_gx,
-    float* __restrict__ out_gy, float* __restrict__ out_gz, int n,
-    const int* __restrict__ worklist, const int* __restrict__ count) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE], sm[TILE];
-  __shared__ int sk[TILE];
+__global__ void __launch_bounds__(NT) grav_short_kernel(
+    const float4* __restrict__ geo, const float* __restrict__ m,
+    const float* __restrict__ h, const int* __restrict__ starts,
+    const int* __restrict__ ends, const float* __restrict__ split,
+    float* __restrict__ out_gx, float* __restrict__ out_gy,
+    float* __restrict__ out_gz, int wg, const int* __restrict__ worklist,
+    const int* __restrict__ count) {
+  constexpr int ROWS_A = ROWS_GRAV;
+  __shared__ float4 srec[CHUNK];
+  __shared__ float smass[CHUNK];
+  __shared__ unsigned short squeue[NW][CHUNK];
+  __shared__ float4 s_rgeo[WG_MAX];
+  __shared__ float s_rinv_h[WG_MAX];
+  __shared__ int s_s[9], s_e[9];
 
   const int g = owned_group<GATED>(worklist, count);
   if constexpr (GATED) {
     if (g < 0) return;
   }
-  const int i = g * blockDim.x + threadIdx.x;
-  const bool row = i < n;
-  const float xi = row ? x[i] : 0.0f;
-  const float yi = row ? y[i] : 0.0f;
-  const float zi = row ? z[i] : 0.0f;
-  const float inv_hi = 1.0f / (row ? h[i] : 1.0f);
-  const int ki = row ? key[i] : 0;
+  load_ranges(starts, ends, g, s_s, s_e);
+  if ((int)threadIdx.x < wg) {
+    s_rgeo[threadIdx.x] = geo[g * wg + threadIdx.x];
+    s_rinv_h[threadIdx.x] = 1.0f / h[g * wg + threadIdx.x];
+  }
+  __syncthreads();
+  const int total = total_candidates(s_s, s_e);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned short* queue = squeue[warp];
   GravSplit gs;
   gs.load(split);
 
-  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
-  for (int o = 0; o < 9; ++o) {
-    const int s = starts[g * 9 + o];
-    const int e = ends[g * 9 + o];
-    const int lo = ki + plane_offset(o) - 1;
-    const int hk = ki + plane_offset(o) + 1;
-    for (int base = s; base < e; base += TILE) {
-      const int cnt = min(TILE, e - base);
-      for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-        sx[j] = x[base + j];
-        sy[j] = y[base + j];
-        sz[j] = z[base + j];
-        sm[j] = m[base + j];
-        sk[j] = key[base + j];
+  int lo = 0;
+  do {
+    // n_it tests of 32 candidates
+    const int n_it = stage_chunk(s_s, s_e, lo, total, srec, nullptr, smass,
+                                 geo, m);
+    __syncthreads();
+    for (int r0 = warp * ROWS_A; r0 < wg; r0 += NW * ROWS_A) {
+      float rx[ROWS_A], ry[ROWS_A], rz[ROWS_A];
+      int rkey[ROWS_A];
+      unsigned inside[ROWS_A];
+#pragma unroll
+      for (int u = 0; u < ROWS_A; ++u) {
+        const float4 c = s_rgeo[min(r0 + u, wg - 1)];
+        rx[u] = c.x, ry[u] = c.y, rz[u] = c.z;
+        rkey[u] = __float_as_int(c.w) - 1;
+        inside[u] = 0u;
       }
-      __syncthreads();
-      for (int j = 0; j < cnt; ++j) {
-        const int kj = sk[j];
-        if (kj < lo || kj > hk) continue;
-        const float dx = xi - sx[j];
-        const float dy = yi - sy[j];
-        const float dz = zi - sz[j];
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        if (!(r2 > 0.0f && r2 < gs.rcut2)) continue;
-        const float inv_r = rsqrtf(fmaxf(r2, 1.0e-12f));
-        const float gc = gs.coef(r2 * inv_r, inv_r, inv_hi, sm[j]);
-        gx += gc * dx;
-        gy += gc * dy;
-        gz += gc * dz;
+      for (int k0 = 0; k0 < n_it; k0 += 4) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 c = srec[slot_of(k0 + kk, lane)];
+          const int kj = __float_as_int(c.w);
+          const unsigned bit = 1u << (k0 + kk);
+#pragma unroll
+          for (int u = 0; u < ROWS_A; ++u) {
+            const float r2 = dist2(rx[u] - c.x, ry[u] - c.y, rz[u] - c.z);
+            if ((unsigned)kj - (unsigned)rkey[u] <= 2u && r2 > 0.0f
+                && r2 < gs.rcut2) {
+              inside[u] |= bit;
+            }
+          }
+        }
       }
-      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < ROWS_A; ++u) {
+        if (r0 + u >= wg) break;
+        const int i = g * wg + r0 + u;
+        const float inv_hi = s_rinv_h[r0 + u];
+        float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+        const int n_in = compact(inside[u], queue, lane);
+        auto pair = [&](const float4 c, float mj) {
+          const float dx = rx[u] - c.x;
+          const float dy = ry[u] - c.y;
+          const float dz = rz[u] - c.z;
+          const float r2 = dist2(dx, dy, dz);
+          const float inv_r = rsqrtf(fmaxf(r2, 1.0e-12f));
+          const float gc = gs.coef(r2 * inv_r, inv_r, inv_hi, mj);
+          gx += gc * dx;
+          gy += gc * dy;
+          gz += gc * dz;
+        };
+        for (int t = lane; t < n_in; t += 32) {
+          const int at = queue[t];
+          pair(srec[at], smass[at]);
+        }
+        gx = warp_sum(gx), gy = warp_sum(gy), gz = warp_sum(gz);
+        if (lane == 0) {
+          const bool first = lo == 0;
+          store_row(out_gx, i, gx, first);
+          store_row(out_gy, i, gy, first);
+          store_row(out_gz, i, gz, first);
+        }
+      }
     }
-  }
-  if (row) {
-    out_gx[i] = gx;
-    out_gy[i] = gy;
-    out_gz[i] = gz;
-  }
+    __syncthreads();
+    lo += CHUNK;
+  } while (lo < total);
 }
 
 // The launchers: a block per window group, gated or not (GATED launches
-// the same grid; see the note on gating at the top).
+// the same grid; see the note on gating at the top).  The density kernels
+// run one thread per row (wg threads a block), the force and gravity
+// kernels NT threads whatever wg is.
 #define SPH_GEOMETRY_PARAMS                                                  \
   const float *x, const float *y, const float *z, const float *m,           \
       const float *h, const int *key, const int *starts, const int *ends
 #define SPH_GEOMETRY_ARGS x, y, z, m, h, key, starts, ends
 #define SPH_FORCE_PARAMS                                                     \
-  const float *x, const float *y, const float *z, const float *vx,          \
-      const float *vy, const float *vz, const float *m, const float *h,     \
-      const int *key, const float *pres, const float *rho,                  \
-      const float *omega, const float *cs, const float *alpha,              \
-      const int *starts, const int *ends, float *ax, float *ay, float *az,  \
-      float *du, float *araw
+  const float4 *geo, const float4 *attr, const float *sup2, const float *h,  \
+      const float *pres, const float *omega, const int *starts,             \
+      const int *ends, float *ax, float *ay, float *az, float *du,          \
+      float *araw
 #define SPH_FORCE_ARGS                                                       \
-  x, y, z, vx, vy, vz, m, h, key, pres, rho, omega, cs, alpha, starts,      \
-      ends, ax, ay, az, du, araw
+  geo, attr, sup2, h, pres, omega, starts, ends, ax, ay, az, du, araw
+#define SPH_GRAV_PARAMS                                                      \
+  const float4 *geo, const float *m, const float *h, const int *starts,     \
+      const int *ends
+#define SPH_GRAV_ARGS geo, m, h, starts, ends
 #define SPH_GRAV_OUT_PARAMS const float *split, float *gx, float *gy, float *gz
 #define SPH_GATE_PARAMS const int *worklist, const int *count
 
@@ -533,22 +859,24 @@ template <bool VARH, bool FUSE, bool GATED>
 int launch_force(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
                  int n, int wg, float av_eps, float beta_factor,
                  void* stream) {
+  if (wg < 1 || wg > WG_MAX) return (int)cudaErrorInvalidValue;
   const int groups = n / wg;
   if (groups > 0) {
-    force_kernel<VARH, FUSE, GATED><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        SPH_FORCE_ARGS, split, gx, gy, gz, n, av_eps, beta_factor, worklist,
+    force_kernel<VARH, FUSE, GATED><<<groups, NT, 0, (cudaStream_t)stream>>>(
+        SPH_FORCE_ARGS, split, gx, gy, gz, wg, av_eps, beta_factor, worklist,
         count);
   }
   return (int)cudaGetLastError();
 }
 
 template <bool GATED>
-int launch_grav_short(SPH_GEOMETRY_PARAMS, SPH_GRAV_OUT_PARAMS,
-                      SPH_GATE_PARAMS, int n, int wg, void* stream) {
+int launch_grav_short(SPH_GRAV_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
+                      int n, int wg, void* stream) {
+  if (wg < 1 || wg > WG_MAX) return (int)cudaErrorInvalidValue;
   const int groups = n / wg;
   if (groups > 0) {
-    grav_short_kernel<GATED><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        SPH_GEOMETRY_ARGS, split, gx, gy, gz, n, worklist, count);
+    grav_short_kernel<GATED><<<groups, NT, 0, (cudaStream_t)stream>>>(
+        SPH_GRAV_ARGS, split, gx, gy, gz, wg, worklist, count);
   }
   return (int)cudaGetLastError();
 }
@@ -559,7 +887,10 @@ extern "C" {
 
 // n rows in n / wg window groups; starts/ends are [n / wg, 9].  Every
 // `_gated` entry point takes its ungated form's arguments, then worklist
-// [n / wg] and count [1] (device pointers), then n, wg, ..., stream.
+// [n / wg] and count [1] (device pointers), then n, wg, ..., stream.  The
+// force entry points take the per-particle records of pack_force (geo
+// [n, 4], attr [n, 8] or with variable h [n, 16], sup2 [n] or null), the
+// gravity entry points geo and the masked mass m.
 
 int density_fixed_h(SPH_GEOMETRY_PARAMS, float* rho_raw, int n, int wg,
                     void* stream) {
@@ -649,17 +980,40 @@ int force_var_h_grav_gated(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS,
       beta_factor, stream);
 }
 
-// Short-range gravity sums on the gravity sort; split is {r_s, r_cut}.
-int grav_short(SPH_GEOMETRY_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
-               void* stream) {
-  return launch_grav_short<false>(SPH_GEOMETRY_ARGS, split, gx, gy, gz,
-                                  nullptr, nullptr, n, wg, stream);
+// The force kernels' records of n particles (pack_force_kernel): geo
+// [n, 4], attr [n, 8], or with var_h [n, 16] and sup2 [n]; pos and vel are
+// [n, 3], alive one byte a row.
+int pack_force(const float* pos, const float* vel, const float* mass,
+               const unsigned char* alive, const float* h, const int* key,
+               const float* pres, const float* rho, const float* omega,
+               const float* cs, const float* alpha, float4* geo,
+               float4* attr, float* sup2, int n, int var_h, void* stream) {
+  if (n > 0) {
+    const int blocks = (n + NT - 1) / NT;
+    if (var_h) {
+      pack_force_kernel<true><<<blocks, NT, 0, (cudaStream_t)stream>>>(
+          pos, vel, mass, alive, h, key, pres, rho, omega, cs, alpha, geo,
+          attr, sup2, n);
+    } else {
+      pack_force_kernel<false><<<blocks, NT, 0, (cudaStream_t)stream>>>(
+          pos, vel, mass, alive, h, key, pres, rho, omega, cs, alpha, geo,
+          attr, sup2, n);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
-int grav_short_gated(SPH_GEOMETRY_PARAMS, SPH_GRAV_OUT_PARAMS,
-                     SPH_GATE_PARAMS, int n, int wg, void* stream) {
-  return launch_grav_short<true>(SPH_GEOMETRY_ARGS, split, gx, gy, gz,
-                                 worklist, count, n, wg, stream);
+// Short-range gravity sums on the gravity sort; split is {r_s, r_cut}.
+int grav_short(SPH_GRAV_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
+               void* stream) {
+  return launch_grav_short<false>(SPH_GRAV_ARGS, split, gx, gy, gz, nullptr,
+                                  nullptr, n, wg, stream);
+}
+
+int grav_short_gated(SPH_GRAV_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
+                     int n, int wg, void* stream) {
+  return launch_grav_short<true>(SPH_GRAV_ARGS, split, gx, gy, gz, worklist,
+                                 count, n, wg, stream);
 }
 
 }  // extern "C"

@@ -27,11 +27,19 @@ gated: an active row sums over all its candidates.
 Both versions compute the same sums over the same ranges: for every
 window group of `cfg.window_group` sorted rows and each of the 9 plane
 offsets, every candidate in the group's true [starts, ends), under each
-row's exact key mask.  The TPU kernels' DMA layout (the [F, N] pack with
-the bitcast key, 128-lane aligned fetches, 3-bit packed plans, exact-window
-rotations, double buffering) has no counterpart: it exists for Mosaic, and
-walking the true ranges computes what it computes.  Because nothing is
-capped, `window_overflow` is 0.
+row's exact key mask.  The TPU kernels' DMA layout (128-lane aligned
+fetches, 3-bit packed plans, exact-window rotations, double buffering)
+has no counterpart: it exists for Mosaic, and walking the true ranges
+computes what it computes.  Because nothing is capped, `window_overflow`
+is 0.
+
+The force and gravity kernels test every candidate of a row's windows
+with one 16-byte load (x, y, z and the key's bits, `pack_geometry`) and
+run the pair arithmetic on the survivors only, reading the other fields
+from one record per particle.  `pack_force` forms those records once per
+force launch: on the card with the `pack_force` kernel (counted in
+`pack_force.launches`), on the CPU, where nothing needs them, as its plain
+version `pack_force_plain`.
 
 The gravity split (r_s, r_cut) of a step is a pair of 0-d tensors; the
 kernels read it from a two-float device buffer, so no wrapper waits for
@@ -73,26 +81,33 @@ def _library() -> ctypes.CDLL:
     for name, n_ptr, tail in (
             ("density_fixed_h", 9, [i32, i32, ptr]),
             ("density_var_h", 10, [i32, i32, ptr]),
-            ("force_fixed_h", 21, [i32, i32, f32, f32, ptr]),
-            ("force_var_h", 21, [i32, i32, f32, f32, ptr]),
-            ("force_fixed_h_grav", 25, [i32, i32, f32, f32, ptr]),
-            ("force_var_h_grav", 25, [i32, i32, f32, f32, ptr]),
-            ("grav_short", 12, [i32, i32, ptr])):
+            ("force_fixed_h", 13, [i32, i32, f32, f32, ptr]),
+            ("force_var_h", 13, [i32, i32, f32, f32, ptr]),
+            ("force_fixed_h_grav", 17, [i32, i32, f32, f32, ptr]),
+            ("force_var_h_grav", 17, [i32, i32, f32, f32, ptr]),
+            ("grav_short", 9, [i32, i32, ptr])):
         # the gated form: two more pointers, worklist and count
         for fn, k in ((getattr(lib, name), n_ptr),
                       (getattr(lib, name + "_gated"), n_ptr + 2)):
             fn.argtypes = [ptr] * k + tail
             fn.restype = i32
+    lib.pack_force.argtypes = [ptr] * 14 + [i32, i32, ptr]
+    lib.pack_force.restype = i32
     return lib
 
 
-def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid):
+def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid,
+                       packed=()):
+    """Raise on what the kernels do not take.  The fields named in `packed`
+    reach a kernel through a pack, which copies them, and need not be
+    contiguous; every other one is passed by its pointer."""
     for name, t in floats.items():
         if t.dtype != torch.float32:
             raise TypeError(f"CUDA pair kernels take float32 only; {name} "
                             f"is {t.dtype}")
     for name, t in {**floats, **ints}.items():
-        if not t.is_cuda or not t.is_contiguous() or t.shape != (n,):
+        if (not t.is_cuda or t.shape != (n,)
+                or not (name in packed or t.is_contiguous())):
             raise ValueError(f"{name}: expected a contiguous CUDA tensor of "
                              f"shape ({n},), got {tuple(t.shape)} on "
                              f"{t.device} (contiguous={t.is_contiguous()})")
@@ -137,6 +152,69 @@ def _soa(p: Particles):
     particles carry mass 0, as in the TPU pack)."""
     return (p.pos.t().contiguous(),
             torch.where(p.alive, p.mass, 0.0).contiguous())
+
+
+def pack_geometry(pos: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """[N, 4] int32 records (the bits of x, y, z, then the cell key): the
+    one 16-byte load per candidate of the force and gravity kernels'
+    candidate test.  Integer copies only, so any int32 key keeps its bits
+    (the TPU pack, pallas_pairs.py:78-104, carried the key's bits in a
+    float row for its own reasons)."""
+    return torch.cat([pos.contiguous().view(torch.int32), key[:, None]],
+                     dim=1)
+
+
+def pack_force_plain(p: Particles, key: torch.Tensor, var: bool):
+    """Plain PyTorch version of the `pack_force` kernel: the per-particle
+    records of the force kernels.  Returns (geo, attr, sup2): geo [N, 4]
+    int32 (`pack_geometry`); attr [N, 8] = (vx, vy, vz, m, pterm, rho, cs,
+    alpha) with m = 0 on dead rows and pterm = P / max(Omega rho^2, 1e-30),
+    one 32-byte record a particle; with `var` attr is [N, 16], continued by
+    (h, 1 / h, 1 / (pi h^4), 4 h^2) and four zeros, and sup2 = 4 h^2 [N]
+    (staged beside the candidates); else sup2 is None."""
+    m = torch.where(p.alive, p.mass, 0.0)
+    pterm = p.pressure / torch.clamp(p.omega * p.rho * p.rho, min=1.0e-30)
+    cols = [p.vel, torch.stack([m, pterm, p.rho, p.cs, p.alpha], dim=1)]
+    sup2 = None
+    if var:
+        inv_h = 1.0 / p.h
+        sup2 = 4.0 * p.h * p.h
+        cols += [torch.stack([p.h, inv_h, ((1.0 / PI) * inv_h * inv_h)
+                              * (inv_h * inv_h), sup2], dim=1),
+                 torch.zeros_like(p.pos[:, :1]).expand(-1, 4)]
+    return pack_geometry(p.pos, key), torch.cat(cols, dim=1), sup2
+
+
+def pack_force(p: Particles, key: torch.Tensor, var: bool):
+    """(geo, attr, sup2) of `pack_force_plain`, formed once per launch of a
+    force kernel from the sorted particles and their keys.  CPU: the plain
+    version; CUDA: the `pack_force` kernel, one pass over the particles
+    that reads nothing on the host."""
+    if _on_cpu(p.pos):
+        return pack_force_plain(p, key, var)
+    n = p.capacity
+    fields = [p.pos, p.vel, p.mass, p.alive, p.h, key, p.pressure, p.rho,
+              p.omega, p.cs, p.alpha]
+    for t in fields:
+        if not t.is_cuda or t.shape[0] != n:
+            raise ValueError(f"pack_force: expected CUDA tensors of {n} rows, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if (p.alive.dtype != torch.bool or key.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in fields
+                   if t.is_floating_point())):
+        raise TypeError("pack_force takes float32 fields, a bool alive and "
+                        "an int32 key")
+    fields = [t.contiguous() for t in fields]
+    dev = p.pos.device
+    geo = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    attr = torch.empty((n, 16 if var else 8), dtype=torch.float32, device=dev)
+    sup2 = torch.empty(n, dtype=torch.float32, device=dev) if var else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(_library().pack_force, *(t.data_ptr() for t in fields),
+            geo.data_ptr(), attr.data_ptr(),
+            sup2.data_ptr() if var else None, n, int(var), stream)
+    pack_force.launches += 1
+    return geo, attr, sup2
 
 
 def _split_buffer(grav_split, device) -> torch.Tensor:
@@ -330,29 +408,25 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
         return force_sums_plain(p, cfg, grid, grav_split, active)
     n = p.capacity
     groups = _groups(n, cfg, grid)
-    pos, m = _soa(p)
-    vel = p.vel.t().contiguous()
-    fields = {"x": pos[0], "y": pos[1], "z": pos[2], "vx": vel[0],
-              "vy": vel[1], "vz": vel[2], "m": m, "h": p.h.contiguous(),
-              "pressure": p.pressure.contiguous(), "rho": p.rho.contiguous(),
-              "omega": p.omega.contiguous(), "cs": p.cs.contiguous(),
-              "alpha": p.alpha.contiguous()}
-    _check_cuda_inputs(n, groups, fields, {"key": grid.key}, grid)
+    h = p.h.contiguous()
+    pres, omega = p.pressure.contiguous(), p.omega.contiguous()
+    _check_cuda_inputs(
+        n, groups, {"x": p.pos[:, 0], "vx": p.vel[:, 0], "m": p.mass,
+                    "h": h, "pressure": pres, "rho": p.rho, "omega": omega,
+                    "cs": p.cs, "alpha": p.alpha}, {"key": grid.key}, grid,
+        packed=("x", "vx", "m", "rho", "cs", "alpha"))
+    var = cfg.fixed_h is None
+    geo, attr, sup2 = pack_force(p, grid.key, var)
     gated, fused = active is not None, grav_split is not None
     gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
     # a gated kernel leaves unlisted rows unwritten: they must read 0
     outs = (torch.zeros if gated else torch.empty)(
         (8 if fused else 5, n), dtype=torch.float32, device=p.pos.device)
-    f = fields
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
-    args = (f["x"].data_ptr(), f["y"].data_ptr(), f["z"].data_ptr(),
-            f["vx"].data_ptr(), f["vy"].data_ptr(), f["vz"].data_ptr(),
-            f["m"].data_ptr(), f["h"].data_ptr(), grid.key.data_ptr(),
-            f["pressure"].data_ptr(), f["rho"].data_ptr(),
-            f["omega"].data_ptr(), f["cs"].data_ptr(), f["alpha"].data_ptr(),
-            grid.starts.data_ptr(), grid.ends.data_ptr(),
-            *(outs[c].data_ptr() for c in range(5)))
-    var = cfg.fixed_h is None
+    args = (geo.data_ptr(), attr.data_ptr(),
+            sup2.data_ptr() if var else None, h.data_ptr(),
+            pres.data_ptr(), omega.data_ptr(), grid.starts.data_ptr(),
+            grid.ends.data_ptr(), *(outs[c].data_ptr() for c in range(5)))
     grav = ()
     if fused:
         split = _split_buffer(grav_split, p.pos.device)
@@ -473,10 +547,10 @@ def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
                                      active)
     n = pos.shape[0]
     groups = _groups(n, cfg, grid)
-    xyz = pos.t().contiguous()
     m, h = m.contiguous(), h.contiguous()
-    _check_cuda_inputs(n, groups, {"x": xyz[0], "y": xyz[1], "z": xyz[2],
-                                   "m": m, "h": h}, {"key": grid.key}, grid)
+    _check_cuda_inputs(n, groups, {"x": pos[:, 0], "m": m, "h": h},
+                       {"key": grid.key}, grid, packed=("x",))
+    geo = pack_geometry(pos, grid.key)
     split = _split_buffer(grav_split, pos.device)
     gated = active is not None
     gate = _gate_pointers(active, groups, pos.device) if gated else ()
@@ -486,8 +560,7 @@ def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     lib = _library()
     _launch(lib.grav_short_gated if gated else lib.grav_short,
-            xyz[0].data_ptr(), xyz[1].data_ptr(), xyz[2].data_ptr(),
-            m.data_ptr(), h.data_ptr(), grid.key.data_ptr(),
+            geo.data_ptr(), m.data_ptr(), h.data_ptr(),
             grid.starts.data_ptr(), grid.ends.data_ptr(), split.data_ptr(),
             *(outs[c].data_ptr() for c in range(3)), *gate,
             n, cfg.window_group, stream)
@@ -554,7 +627,9 @@ def window_overflow(grid: SortedGrid, cfg: SimConfig) -> torch.Tensor:
 
 for _wrapper, _attr in launch_counters():
     setattr(_wrapper, _attr, 0)
+pack_force.launches = 0
 
 __all__ = ["density_sums", "density_sums_plain", "density", "force_sums",
-           "force_sums_plain", "grav_short_sums", "grav_short_sums_plain",
+           "force_sums_plain", "pack_force", "pack_force_plain",
+           "pack_geometry", "grav_short_sums", "grav_short_sums_plain",
            "pair_eval", "window_overflow", "launch_counters", "SOURCE"]
