@@ -90,25 +90,33 @@ caught:
    the collapse checks, the layer spans, the busy share and the A/B;
 16. window shapes built to break a queue or a tile loop
    (summersph_tpu_torch/models/ragged.py: empty ranges, ranges of 1, 31,
-   32, 33 and 129 candidates, a group that ends in dead rows, rows with
-   no pair, a group whose every candidate is a pair, a small clump, an h
-   gradient whose pairs reach only from j) and a 16,384-particle clump
-   with variable h: the force kernels (fixed h, variable h, fused) and
-   the gravity kernel against the plain version in float64
-   (`hold_exact`), two launches of each compared bit for bit, the fused
-   form's SPH sums equal to the unfused kernel's, and the `pack_force`
-   kernel equal to its plain version bit for bit;
+   32, 33 and 129 candidates, groups of more than one chunk of
+   candidates, a group that ends in dead rows, rows with no pair, a group
+   whose every candidate is a pair, a small clump, an h gradient whose
+   pairs reach only from j) and a 16,384-particle clump with variable h:
+   the density kernels (fixed h, variable h: rho_raw within RHO_RTOL of
+   the plain version, Omega_raw against it in float64) with their gated
+   forms equal to them bit for bit at a partial and at a full worklist,
+   the force kernels (fixed h, variable h, fused) and the gravity kernel
+   against the plain version in float64 (`hold_exact`), two launches of
+   each compared bit for bit, the fused form's SPH sums equal to the
+   unfused kernel's, and the `pack_force` kernel equal to its plain
+   version bit for bit; the clump also with fixed h, for the density
+   kernels only;
 17. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
    the rows and pairs of the listed groups only) and, last,
    {"ok": true, "device": ...}.
 
-For the force and gravity kernels, which test every candidate of a row's
-windows and run the pair arithmetic on the survivors only, the kernel
-checks print the candidates tested per row and the share that survives
-the test; phases 7, 11 and 15 also launch `grav_short` and `force_var_h`
-twice on one state and require equal bits.
+For the pair kernels, which test every candidate of a row's windows and
+run the pair arithmetic on the survivors only, the kernel checks print the
+candidates tested per row and the share that survives the test; every
+check of a density and force kernel pair (`sph_kernels`, phases 3, 5, 8,
+11, 12, 13 and 15) also launches both twice on one state and requires
+equal bits, and where it is ungated the gated density at a full worklist,
+equal to the ungated one bit for bit; phases 7, 11 and 15 launch
+`grav_short` twice too.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false.  No JAX is imported.
@@ -438,6 +446,25 @@ def sph_pair_counts(p, grid, cfg, active=None):
                         active=active))
 
 
+def density_bitwise(name, p_sorted, grid, cfg, label, active=None):
+    """Two launches of a density kernel on one state give the same bits;
+    ungated, its gated form at a full worklist gives them too."""
+    import torch
+    from summersph_tpu_torch.ops import cuda_pairs
+    from summersph_tpu_torch.ops.sorted_grid import group_worklist
+
+    call = lambda a=active: cuda_pairs.density_sums(p_sorted, cfg, grid, a)
+    twice_bitwise(name, call, label)
+    if active is None:
+        full = group_worklist(torch.ones_like(p_sorted.alive),
+                              cfg.window_group)
+        for c, (a, b) in enumerate(zip(call(), call(full))):
+            require(torch.equal(a, b), f"{name}_gated output {c}: full "
+                    f"worklist differs from ungated ({label})")
+        print(f"[{label}] {name}_gated at a full worklist: equal to "
+              f"{name} bit for bit", flush=True)
+
+
 def sph_kernels(p_sorted, grid, cfg, label, active=None):
     """The density and force kernels (fixed-h or variable-h by cfg) against
     their plain versions on one sorted state; returns {name: (err, ms,
@@ -495,12 +522,14 @@ def sph_kernels(p_sorted, grid, cfg, label, active=None):
         print(f"[{label}] pairs inside 2h: {n_dens} "
               f"({n_dens / max(n_rows, 1):.1f} per row of {n_rows})",
               flush=True)
-    # the force kernel's test also passes a live row's own candidate (r = 0)
-    live = p_sorted.alive if active is None else (
+    # each kernel's test also passes a live row's own candidate (r = 0)
+    live = int((p_sorted.alive if active is None else (
         p_sorted.alive.view(groups, -1)[
-            active[0][:int(active[1])].long()])
-    tested_share(fname, grid, cfg.window_group, n_force + int(live.sum()),
-                 label, active)
+            active[0][:int(active[1])].long()])).sum())
+    tested_share(dname, grid, cfg.window_group, n_dens + live, label, active)
+    density_bitwise(dname, p_sorted, grid, cfg, label, active)
+    tested_share(fname, grid, cfg.window_group, n_force + live, label,
+                 active)
     twice_bitwise(fname, lambda: cuda_pairs.force_sums(p_dens, cfg, grid,
                                                        None, active), label)
     out[dname] += bound(dname, rows, groups,
@@ -1079,12 +1108,15 @@ def pack_kernel(p_dens, key, var, label):
 
 
 def ragged_checks(dev, n_clump=16384):
-    """The force and gravity kernels on window shapes built to break a
-    queue or a tile loop (models/ragged.py) and on a clump of `n_clump`
-    particles with variable h: every form against the plain version in
-    float64 (`hold_exact`), two launches bit for bit, the fused form's SPH
-    sums bit for bit the unfused kernel's, `pack_force` bit for bit its
-    plain version."""
+    """The pair kernels on window shapes built to break a queue or a tile
+    loop (models/ragged.py) and on a clump of `n_clump` particles with
+    variable h: the density kernels' rho_raw within RHO_RTOL of the plain
+    version, every other sum against the plain version in float64
+    (`hold_exact`), two launches bit for bit, a gated density launch bit
+    for bit the ungated one on the listed rows and 0 elsewhere (at a
+    partial and a full worklist), the fused form's SPH sums bit for bit
+    the unfused kernel's, `pack_force` bit for bit its plain version.  The
+    clump with fixed h runs the density checks only."""
     import torch
     from summersph_tpu_torch.config import SimConfig
     from summersph_tpu_torch.models import ragged
@@ -1092,9 +1124,31 @@ def ragged_checks(dev, n_clump=16384):
     from summersph_tpu_torch.ops.sorted_grid import sort_particles
     from summersph_tpu_torch.state import Particles
 
+    def density_checks(p2, grid, cfg, label):
+        var = cfg.fixed_h is None
+        name = f"density_{'var' if var else 'fixed'}_h"
+        call = lambda a=None: cuda_pairs.density_sums(p2, cfg, grid, a)
+        ours = flat(call())
+        plain = cuda_pairs.density_sums_plain(p2, cfg, grid)
+        hold(name, ours[:1], plain[:1], label, rtol=RHO_RTOL, atol_rel=0.0)
+        if var:
+            hold_exact(name, ours[1:], plain[1:],
+                       cuda_pairs.density_sums_plain(f64(p2), cfg, grid)[1:],
+                       label, first=1)
+        else:
+            require(not bool(ours[1].any()),
+                    f"{name}: omega_raw not 0 ({label})")
+        twice_bitwise(name, call, label)
+        gated_bitwise(name + "_gated", call, lowest_quarter(p2.pos, p2.alive),
+                      cfg.window_group, label)
+        survivors = count_pairs(p2.pos, grid, cfg.window_group, 4.0,
+                                h=p2.h) + int(p2.alive.sum())
+        tested_share(name, grid, cfg.window_group, survivors, label)
+
     def check(p, cfg, r_cut, label):
         var = cfg.fixed_h is None
         p2, grid = sort_particles(p, cfg)
+        density_checks(p2, grid, cfg, label)
         p3 = cuda_pairs.pair_eval(p2, cfg, grid)[0]
         r_cut = torch.as_tensor(r_cut, dtype=torch.float32, device=dev)
         split = (r_cut / cfg.effective_rcut_rs(), r_cut)
@@ -1163,6 +1217,10 @@ def ragged_checks(dev, n_clump=16384):
     cfg = SimConfig(fixed_h=None, neighbor_mode="sorted", sorted_block=128,
                     window_group=32, gravity="pm")
     check(p, cfg, 1.0, f"ragged clump N={n_clump} var h")
+    cfg = cfg.with_(fixed_h=0.5)
+    p = p.replace(h=torch.full_like(h, 0.5))
+    density_checks(*sort_particles(p, cfg), cfg,
+                   f"ragged clump N={n_clump} fixed h")
 
 
 # ------------------------------------------------------- block timesteps

@@ -39,53 +39,66 @@
 // 16-byte candidate record is read from device memory once per block and
 // serves all its rows.  The sums are ragged, data-dependent scalar FP32
 // work with divisions, an rsqrt and an exp per pair: wgmma, TMA tiles and
-// the tensor cores have no use here.
+// the tensor cores have no use here.  The density pair is the cheapest
+// (about 20 operations with fixed h, 31 with the grad-h sum, against 55-80
+// for gravity and the force), so the density kernels are bound by the
+// candidate test and staging more than by their arithmetic.
 //
-// The density kernels (density_kernel) keep the first design: one thread
-// per row, every thread of the block walking every staged candidate in
-// turn, so a lane that rejects a candidate waits while another lane of its
-// warp runs the pair arithmetic.
-//
-// The force and gravity kernels (force_kernel, grav_short_kernel) split
-// the candidate test from the pair arithmetic:
+// Every pair kernel (density_kernel, force_kernel, grav_short_kernel)
+// splits the candidate test from the pair arithmetic, so that a lane that
+// rejects a candidate never waits while another lane of its warp runs the
+// arithmetic of one it accepted:
 //  - A block of NW = 8 warps owns one window group of `wg` consecutive
 //    sorted rows (the block size is the kernel's own constant, not wg);
 //    the group's rows are staged in shared memory once, and a warp takes
-//    ROWS of them at a time (2 for the force, 4 for gravity).
+//    ROWS of them at a time (2 for the force, 4 for gravity and the
+//    density).
 //  - The group's 9 candidate ranges [starts[g, o], ends[g, o]), laid end to
 //    end, are staged through shared memory in chunks of CHUNK = 1024
 //    candidates as 16-byte records (x, y, z, key bits), with the range's
 //    plane offset taken off the key, so that a row tests one key window
 //    whatever range a candidate came from; the variable-h force kernel
-//    stages 4 h_j^2 beside them, gravity m_j.  A typical SPH group fits
-//    one chunk; any range length is walked whole, so no candidate is ever
-//    dropped (the TPU kernels' fixed window sizes could drop some and
+//    stages 4 h_j^2 beside them, gravity and the density m_j (0 on dead
+//    rows).  A typical SPH group fits one chunk; any range length is
+//    walked whole, so no candidate is ever dropped (the TPU kernels' fixed window sizes could drop some and
 //    counted them in window_overflow).  Staging goes through registers
 //    (the key is rewritten on the way), in one flat loop with all of a
-//    thread's loads in flight; four or five blocks are resident on an SM,
-//    so one block's staging overlaps the others' arithmetic, and there is
-//    no second buffer inside a block, which would cost a resident block.
+//    thread's loads in flight; four or five blocks are resident on an SM
+//    (the density kernel asks for five, at 48 registers a thread), so one
+//    block's staging overlaps the others' arithmetic, and there is no
+//    second buffer inside a block, which would cost a resident block.
 //  - Phase A, on every lane: the 32 lanes of a warp test 32 candidates per
 //    load against the warp's ROWS rows, whose data are uniform registers:
 //    the row's exact key mask k_j in [k_i + off - 1, k_i + off + 1], dx,
-//    dy, dz, r^2 and the cutoff compare.  A survivor sets one bit of the
-//    lane's 32-bit mask for that row: no ballot, no queue traffic per
-//    test.  (A first version compacted survivors with __ballot_sync /
-//    __popc after every 32 candidates; that cost more than the test.)
+//    dy, dz, r^2 and the cutoff compare (the density's is r^2 < 4 h_i^2:
+//    with variable h a gather sum at 2 h_i, as w and dW/dh vanish beyond
+//    q = 2; its r = 0 self candidate passes and adds 0 in phase B, which is
+//    cheaper than one more compare per test).  When a warp's rows share
+//    one cell, as they mostly do, the density kernel tests the key window
+//    once for all of them.  A survivor sets one bit of the lane's 32-bit
+//    mask for that row: no ballot, no queue traffic per test.  (A first
+//    version compacted survivors with __ballot_sync / __popc after every
+//    32 candidates; that cost more than the test.)
 //  - Phase B, on full warps, a row at a time: `compact` lays the set bits
 //    of all lanes into the warp's queue in shared memory (one prefix sum
 //    over the lanes' counts), then each lane takes queued candidates and
-//    runs the whole pair arithmetic, reading x, y, z from the staged
-//    record and, for the force, one 32-byte record of the other fields (v,
-//    m, pterm_j, rho, cs, alpha; with variable h 64 bytes, with h_j, 1 /
-//    h_j, 1 / (pi h_j^4)) by index.  Those per-particle factors (pterm_j =
+//    runs the whole pair arithmetic, reading x, y, z (and m_j for the
+//    density and gravity) from shared memory and, for the force, one
+//    32-byte record of the other fields (v, m, pterm_j, rho, cs, alpha;
+//    with variable h 64 bytes, with h_j, 1 / h_j, 1 / (pi h_j^4)) by
+//    index.  Those per-particle factors (pterm_j =
 //    P_j / max(Omega_j rho_j^2, 1e-30), the powers of h_j) are formed once
 //    per launch by pack_force_kernel, not per pair.
 //  - Each lane keeps its own partial sums; one __shfl_xor_sync tree per
 //    output ends the row's chunk, and lane 0 writes the row (adds to it
-//    for a later chunk).  No float atomics: the bits of a row depend only
-//    on its group's ranges, never on block placement or on gating, so two
-//    launches agree bit for bit and a gated form equals its ungated one.
+//    for a later chunk).  The density kernels keep a row's raw sums in
+//    shared memory across chunks instead and write each row once, scaled
+//    by 1 / (pi h_i^3), after the last chunk.  No float atomics: the bits
+//    of a row depend only on its group's ranges, never on block placement
+//    or on gating, so two launches agree bit for bit and a gated form
+//    equals its ungated one.  Every multiply-add that decides those bits
+//    is spelled out (dist2, w_shape_rn, dw_shape_rn, __fmaf_rn): ptxas
+//    contracts a * b + c by context, differently per instantiation.
 //  - The fused forms keep two masks, one for the SPH pairs (r^2 < 4 h^2,
 //    or 4 max(h_i, h_j)^2) and one for the gravity pairs (0 < r^2 <
 //    r_cut^2), and the force arithmetic spells out its fused multiply-adds,
@@ -109,7 +122,6 @@
 
 namespace {
 
-constexpr int TILE = 128;
 constexpr int KX = 1 << 20;
 constexpr int KY = 1 << 10;
 constexpr float INV_PI = 0.318309886183790671538f;
@@ -134,24 +146,6 @@ __device__ __forceinline__ int owned_group(const int* __restrict__ worklist,
   } else {
     return blockIdx.x;
   }
-}
-
-__device__ __forceinline__ float w_shape(float q) {
-  if (q <= 1.0f) return 1.0f - 1.5f * q * q + 0.75f * q * q * q;
-  if (q <= 2.0f) {
-    float t = 2.0f - q;
-    return 0.25f * t * t * t;
-  }
-  return 0.0f;
-}
-
-__device__ __forceinline__ float dw_shape(float q) {
-  if (q <= 1.0f) return -3.0f * q + 2.25f * q * q;
-  if (q <= 2.0f) {
-    float t = 2.0f - q;
-    return -0.75f * t * t;
-  }
-  return 0.0f;
 }
 
 // Spline softening factor f(q) of G m / r^2 (ops/kernels.py grav_shape).
@@ -200,84 +194,10 @@ struct GravSplit {
   }
 };
 
-// rho_raw[i] = sum_j m_j w(r_ij / h_i) / (pi h_i^3) over the 9 windows,
-// r_ij > 0 (the self term is added by pairs.finalize_density).  VARH also
-// writes omega_raw[i] = sum_j m_j dW/dh(r_ij, h_i), whose shape is
-// -(3 w(q) + q w'(q)) / (pi h_i^4) (pallas_pairs.py _density_body).
-template <bool VARH, bool GATED>
-__global__ void density_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, const float* __restrict__ m,
-    const float* __restrict__ h, const int* __restrict__ key,
-    const int* __restrict__ starts, const int* __restrict__ ends,
-    float* __restrict__ rho_raw, float* __restrict__ omega_raw, int n,
-    const int* __restrict__ worklist, const int* __restrict__ count) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE], sm[TILE];
-  __shared__ int sk[TILE];
-
-  const int g = owned_group<GATED>(worklist, count);
-  if constexpr (GATED) {
-    if (g < 0) return;
-  }
-  const int i = g * blockDim.x + threadIdx.x;
-  const bool row = i < n;
-  const float xi = row ? x[i] : 0.0f;
-  const float yi = row ? y[i] : 0.0f;
-  const float zi = row ? z[i] : 0.0f;
-  const float hi = row ? h[i] : 1.0f;
-  const int ki = row ? key[i] : 0;
-  const float inv_hi = 1.0f / hi;
-  const float support2 = 4.0f * hi * hi;
-
-  float rho = 0.0f;
-  float om = 0.0f;
-  for (int o = 0; o < 9; ++o) {
-    const int s = starts[g * 9 + o];
-    const int e = ends[g * 9 + o];
-    const int lo = ki + plane_offset(o) - 1;
-    const int hk = ki + plane_offset(o) + 1;
-    for (int base = s; base < e; base += TILE) {
-      const int cnt = min(TILE, e - base);
-      for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-        sx[j] = x[base + j];
-        sy[j] = y[base + j];
-        sz[j] = z[base + j];
-        sm[j] = m[base + j];
-        sk[j] = key[base + j];
-      }
-      __syncthreads();
-      for (int j = 0; j < cnt; ++j) {
-        const int kj = sk[j];
-        if (kj < lo || kj > hk) continue;
-        const float dx = xi - sx[j];
-        const float dy = yi - sy[j];
-        const float dz = zi - sz[j];
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        if (!(r2 > 0.0f && r2 < support2)) continue;
-        const float r = r2 * rsqrtf(fmaxf(r2, 1.0e-12f));
-        if constexpr (VARH) {
-          const float q = r * inv_hi;
-          const float w = w_shape(q);
-          rho += sm[j] * w;
-          om += sm[j] * -(3.0f * w + q * dw_shape(q));
-        } else {
-          rho += sm[j] * w_shape(r * inv_hi);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const float inv_pi_h3 = INV_PI * inv_hi * inv_hi * inv_hi;
-  if (row) {
-    rho_raw[i] = rho * inv_pi_h3;
-    if constexpr (VARH) omega_raw[i] = om * inv_pi_h3 * inv_hi;
-  }
-}
-
 // ------------------------------------------------------------------------
-// The warp-per-row machinery of the force and gravity kernels (see the note
-// at the top): chunk staging, the candidate test, the survivor queue, the
-// row sums.
+// The warp-per-row machinery of the pair kernels (see the note at the
+// top): chunk staging, the candidate test, the survivor queue, the row
+// sums.
 
 constexpr int NW = 8;                // warps per block
 constexpr int NT = NW * 32;          // threads per block
@@ -285,6 +205,7 @@ constexpr int CHUNK = 1024;          // candidates staged at a time: one bit
                                      // per candidate in a lane's 32-bit mask
 constexpr int ROWS_FORCE = 2;        // rows a warp tests per candidate load
 constexpr int ROWS_GRAV = 4;
+constexpr int ROWS_DENSITY = 4;
 constexpr int WG_MAX = 128;          // rows of a window group, at most
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int KEY_NEVER = (int)0x80000000;  // a staged key no row accepts
@@ -295,12 +216,26 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
   return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
 }
 
-// a b + c d + e f, and the force kernel's dw_shape, with every fused
-// multiply-add spelled out: the compiler contracts a * b + c by context,
-// and the fused and unfused force kernels must agree bit for bit.
+// a b + c d + e f, and the spline's w(q) and w'(q) (ops/kernels.py
+// w_shape, dw_shape), with every fused multiply-add spelled out: the
+// compiler contracts a * b + c by context, and the fused and unfused force
+// kernels, like a gated kernel and its ungated form, must agree bit for
+// bit.
 __device__ __forceinline__ float fma3(float a, float b, float c, float d,
                                       float e, float f) {
   return __fmaf_rn(e, f, __fmaf_rn(c, d, __fmul_rn(a, b)));
+}
+
+__device__ __forceinline__ float w_shape_rn(float q) {
+  if (q <= 1.0f) {
+    const float q2 = __fmul_rn(q, q);
+    return __fmaf_rn(__fmul_rn(0.75f, q2), q, __fmaf_rn(-1.5f, q2, 1.0f));
+  }
+  if (q <= 2.0f) {
+    const float t = __fsub_rn(2.0f, q);
+    return 0.25f * t * t * t;
+  }
+  return 0.0f;
 }
 
 __device__ __forceinline__ float dw_shape_rn(float q) {
@@ -352,7 +287,7 @@ __device__ __forceinline__ int total_candidates(const int* s_s,
 // every row tests one key window [k_i - 1, k_i + 1] whatever range a
 // candidate came from; sidx (if not null) its index in the sorted arrays;
 // sextra (if not null) extra[index] (4 h_j^2 for the variable-h force, m_j
-// for gravity).  One flat loop, so that all of a thread's loads are in
+// for the density and gravity).  One flat loop, so that all of a thread's loads are in
 // flight together.  Returns the number of 32-candidate tests; the caller
 // synchronises the block afterwards.
 __device__ __forceinline__ int stage_chunk(
@@ -423,6 +358,147 @@ __device__ __forceinline__ int compact(unsigned mask, unsigned short* slot,
   }
   __syncwarp();
   return total;
+}
+
+// Phase A of the density kernel: bit k of inside[u] is set when the lane's
+// candidate of test k lies in row u's key window and inside its 2 h_u (w
+// and dW/dh vanish beyond: the density gathers at h_i).  SAME: the rows
+// share one key, as a warp's rows mostly do (rows are sorted by cell), so
+// one key test serves them all.
+template <int ROWS, bool SAME>
+__device__ __forceinline__ void density_test(
+    const float4* srec, int n_it, int lane, const float* rx, const float* ry,
+    const float* rz, const int* rkey, const float* rsup, unsigned* inside) {
+  for (int k0 = 0; k0 < n_it; k0 += 4) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 c = srec[slot_of(k0 + kk, lane)];
+      const int kj = __float_as_int(c.w);
+      const unsigned bit = 1u << (k0 + kk);
+      const bool key0 = (unsigned)kj - (unsigned)rkey[0] <= 2u;
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        const float r2 = dist2(rx[u] - c.x, ry[u] - c.y, rz[u] - c.z);
+        const bool in_key =
+            SAME ? key0 : (unsigned)kj - (unsigned)rkey[u] <= 2u;
+        if (in_key && r2 < rsup[u]) inside[u] |= bit;
+      }
+    }
+  }
+}
+
+// rho_raw[i] = sum_j m_j w(r_ij / h_i) / (pi h_i^3) over the 9 windows,
+// 0 < r_ij < 2 h_i (the self term is added by pairs.finalize_density).
+// VARH also writes omega_raw[i] = sum_j m_j dW/dh(r_ij, h_i), whose shape
+// is -(3 w(q) + q w'(q)) / (pi h_i^4) (pallas_pairs.py _density_body).
+// geo holds (x, y, z, key bits); m is the masked mass, staged beside the
+// candidates as grav_short_kernel stages it.  A row's raw sums stay in
+// shared memory (s_rho, s_om) until its last chunk; each row is written
+// once, scaled, by one thread.
+template <bool VARH, bool GATED>
+__global__ void __launch_bounds__(NT, 5) density_kernel(
+    const float4* __restrict__ geo, const float* __restrict__ m,
+    const float* __restrict__ h, const int* __restrict__ starts,
+    const int* __restrict__ ends, float* __restrict__ rho_raw,
+    float* __restrict__ omega_raw, int wg, const int* __restrict__ worklist,
+    const int* __restrict__ count) {
+  constexpr int ROWS_A = ROWS_DENSITY;
+  __shared__ float4 srec[CHUNK];
+  __shared__ float smass[CHUNK];
+  __shared__ unsigned short squeue[NW][CHUNK];
+  __shared__ float4 s_rgeo[WG_MAX];
+  __shared__ float s_rinv_h[WG_MAX], s_rsup[WG_MAX];
+  __shared__ float s_rho[WG_MAX], s_om[VARH ? WG_MAX : 1];
+  __shared__ int s_s[9], s_e[9];
+
+  const int g = owned_group<GATED>(worklist, count);
+  if constexpr (GATED) {
+    if (g < 0) return;
+  }
+  load_ranges(starts, ends, g, s_s, s_e);
+  if ((int)threadIdx.x < wg) {
+    const float hi = h[g * wg + threadIdx.x];
+    s_rgeo[threadIdx.x] = geo[g * wg + threadIdx.x];
+    s_rinv_h[threadIdx.x] = 1.0f / hi;
+    s_rsup[threadIdx.x] = 4.0f * hi * hi;
+  }
+  __syncthreads();
+  const int total = total_candidates(s_s, s_e);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned short* queue = squeue[warp];
+
+  int lo = 0;
+  do {
+    // n_it tests of 32 candidates
+    const int n_it = stage_chunk(s_s, s_e, lo, total, srec, nullptr, smass,
+                                 geo, m);
+    __syncthreads();
+    for (int r0 = warp * ROWS_A; r0 < wg; r0 += NW * ROWS_A) {
+      float rx[ROWS_A], ry[ROWS_A], rz[ROWS_A], rsup[ROWS_A];
+      int rkey[ROWS_A];
+      unsigned inside[ROWS_A];
+#pragma unroll
+      for (int u = 0; u < ROWS_A; ++u) {
+        const int r = min(r0 + u, wg - 1);
+        const float4 c = s_rgeo[r];
+        rx[u] = c.x, ry[u] = c.y, rz[u] = c.z;
+        rkey[u] = __float_as_int(c.w) - 1;
+        rsup[u] = s_rsup[r];
+        inside[u] = 0u;
+      }
+      bool same = true;
+#pragma unroll
+      for (int u = 1; u < ROWS_A; ++u) same = same && rkey[u] == rkey[0];
+      if (same) {
+        density_test<ROWS_A, true>(srec, n_it, lane, rx, ry, rz, rkey, rsup,
+                                   inside);
+      } else {
+        density_test<ROWS_A, false>(srec, n_it, lane, rx, ry, rz, rkey,
+                                    rsup, inside);
+      }
+#pragma unroll
+      for (int u = 0; u < ROWS_A; ++u) {
+        if (r0 + u >= wg) break;
+        const float inv_hi = s_rinv_h[r0 + u];
+        float rho = 0.0f, om = 0.0f;
+        const int n_in = compact(inside[u], queue, lane);
+        for (int t = lane; t < n_in; t += 32) {
+          const int at = queue[t];
+          const float4 c = srec[at];
+          const float r2 = dist2(rx[u] - c.x, ry[u] - c.y, rz[u] - c.z);
+          // r = 0, a row's own candidate, adds exactly 0
+          const float mj = r2 > 0.0f ? smass[at] : 0.0f;
+          const float q = r2 * rsqrtf(fmaxf(r2, 1.0e-12f)) * inv_hi;
+          const float w = w_shape_rn(q);
+          rho = __fmaf_rn(mj, w, rho);
+          if constexpr (VARH) {
+            om = __fmaf_rn(mj, -__fmaf_rn(q, dw_shape_rn(q),
+                                          __fmul_rn(3.0f, w)), om);
+          }
+        }
+        rho = warp_sum(rho);
+        if constexpr (VARH) om = warp_sum(om);
+        if (lane == 0) {
+          // the same lane of the same warp owns row r0 + u in every chunk
+          const bool first = lo == 0;
+          s_rho[r0 + u] = first ? rho : s_rho[r0 + u] + rho;
+          if constexpr (VARH) s_om[r0 + u] = first ? om : s_om[r0 + u] + om;
+        }
+      }
+    }
+    __syncthreads();
+    lo += CHUNK;
+  } while (lo < total);
+  if ((int)threadIdx.x < wg) {
+    const int i = g * wg + threadIdx.x;
+    const float inv_hi = s_rinv_h[threadIdx.x];
+    const float inv_pi_h3 = INV_PI * inv_hi * inv_hi * inv_hi;
+    rho_raw[i] = s_rho[threadIdx.x] * inv_pi_h3;
+    if constexpr (VARH) {
+      omega_raw[i] = s_om[threadIdx.x] * inv_pi_h3 * inv_hi;
+    }
+  }
 }
 
 // The force kernels' per-particle records, formed once per launch (the
@@ -822,14 +898,13 @@ __global__ void __launch_bounds__(NT) grav_short_kernel(
   } while (lo < total);
 }
 
-// The launchers: a block per window group, gated or not (GATED launches
-// the same grid; see the note on gating at the top).  The density kernels
-// run one thread per row (wg threads a block), the force and gravity
-// kernels NT threads whatever wg is.
-#define SPH_GEOMETRY_PARAMS                                                  \
-  const float *x, const float *y, const float *z, const float *m,           \
-      const float *h, const int *key, const int *starts, const int *ends
-#define SPH_GEOMETRY_ARGS x, y, z, m, h, key, starts, ends
+// The launchers: a block of NT threads per window group, whatever wg is,
+// gated or not (GATED launches the same grid; see the note on gating at
+// the top).
+#define SPH_GEO_PARAMS                                                       \
+  const float4 *geo, const float *m, const float *h, const int *starts,     \
+      const int *ends
+#define SPH_GEO_ARGS geo, m, h, starts, ends
 #define SPH_FORCE_PARAMS                                                     \
   const float4 *geo, const float4 *attr, const float *sup2, const float *h,  \
       const float *pres, const float *omega, const int *starts,             \
@@ -837,20 +912,17 @@ __global__ void __launch_bounds__(NT) grav_short_kernel(
       float *araw
 #define SPH_FORCE_ARGS                                                       \
   geo, attr, sup2, h, pres, omega, starts, ends, ax, ay, az, du, araw
-#define SPH_GRAV_PARAMS                                                      \
-  const float4 *geo, const float *m, const float *h, const int *starts,     \
-      const int *ends
-#define SPH_GRAV_ARGS geo, m, h, starts, ends
 #define SPH_GRAV_OUT_PARAMS const float *split, float *gx, float *gy, float *gz
 #define SPH_GATE_PARAMS const int *worklist, const int *count
 
 template <bool VARH, bool GATED>
-int launch_density(SPH_GEOMETRY_PARAMS, float* rho_raw, float* omega_raw,
+int launch_density(SPH_GEO_PARAMS, float* rho_raw, float* omega_raw,
                    SPH_GATE_PARAMS, int n, int wg, void* stream) {
+  if (wg < 1 || wg > WG_MAX) return (int)cudaErrorInvalidValue;
   const int groups = n / wg;
   if (groups > 0) {
-    density_kernel<VARH, GATED><<<groups, wg, 0, (cudaStream_t)stream>>>(
-        SPH_GEOMETRY_ARGS, rho_raw, omega_raw, n, worklist, count);
+    density_kernel<VARH, GATED><<<groups, NT, 0, (cudaStream_t)stream>>>(
+        SPH_GEO_ARGS, rho_raw, omega_raw, wg, worklist, count);
   }
   return (int)cudaGetLastError();
 }
@@ -870,13 +942,13 @@ int launch_force(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
 }
 
 template <bool GATED>
-int launch_grav_short(SPH_GRAV_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
+int launch_grav_short(SPH_GEO_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
                       int n, int wg, void* stream) {
   if (wg < 1 || wg > WG_MAX) return (int)cudaErrorInvalidValue;
   const int groups = n / wg;
   if (groups > 0) {
     grav_short_kernel<GATED><<<groups, NT, 0, (cudaStream_t)stream>>>(
-        SPH_GRAV_ARGS, split, gx, gy, gz, wg, worklist, count);
+        SPH_GEO_ARGS, split, gx, gy, gz, wg, worklist, count);
   }
   return (int)cudaGetLastError();
 }
@@ -885,36 +957,37 @@ int launch_grav_short(SPH_GRAV_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
 
 extern "C" {
 
-// n rows in n / wg window groups; starts/ends are [n / wg, 9].  Every
-// `_gated` entry point takes its ungated form's arguments, then worklist
-// [n / wg] and count [1] (device pointers), then n, wg, ..., stream.  The
-// force entry points take the per-particle records of pack_force (geo
-// [n, 4], attr [n, 8] or with variable h [n, 16], sup2 [n] or null), the
-// gravity entry points geo and the masked mass m.
+// n rows in n / wg window groups, wg at most WG_MAX; starts/ends are
+// [n / wg, 9].  Every `_gated` entry point takes its ungated form's
+// arguments, then worklist [n / wg] and count [1] (device pointers), then
+// n, wg, ..., stream.  The force entry points take the per-particle records
+// of pack_force (geo [n, 4], attr [n, 8] or with variable h [n, 16], sup2
+// [n] or null), the density and gravity entry points geo and the masked
+// mass m.
 
-int density_fixed_h(SPH_GEOMETRY_PARAMS, float* rho_raw, int n, int wg,
+int density_fixed_h(SPH_GEO_PARAMS, float* rho_raw, int n, int wg,
                     void* stream) {
-  return launch_density<false, false>(SPH_GEOMETRY_ARGS, rho_raw, nullptr,
+  return launch_density<false, false>(SPH_GEO_ARGS, rho_raw, nullptr,
                                       nullptr, nullptr, n, wg, stream);
 }
 
-int density_fixed_h_gated(SPH_GEOMETRY_PARAMS, float* rho_raw,
+int density_fixed_h_gated(SPH_GEO_PARAMS, float* rho_raw,
                           SPH_GATE_PARAMS, int n, int wg, void* stream) {
-  return launch_density<false, true>(SPH_GEOMETRY_ARGS, rho_raw, nullptr,
+  return launch_density<false, true>(SPH_GEO_ARGS, rho_raw, nullptr,
                                      worklist, count, n, wg, stream);
 }
 
 // density_fixed_h plus the grad-h sums omega_raw (variable h).
-int density_var_h(SPH_GEOMETRY_PARAMS, float* rho_raw, float* omega_raw,
+int density_var_h(SPH_GEO_PARAMS, float* rho_raw, float* omega_raw,
                   int n, int wg, void* stream) {
-  return launch_density<true, false>(SPH_GEOMETRY_ARGS, rho_raw, omega_raw,
+  return launch_density<true, false>(SPH_GEO_ARGS, rho_raw, omega_raw,
                                      nullptr, nullptr, n, wg, stream);
 }
 
-int density_var_h_gated(SPH_GEOMETRY_PARAMS, float* rho_raw,
+int density_var_h_gated(SPH_GEO_PARAMS, float* rho_raw,
                         float* omega_raw, SPH_GATE_PARAMS, int n, int wg,
                         void* stream) {
-  return launch_density<true, true>(SPH_GEOMETRY_ARGS, rho_raw, omega_raw,
+  return launch_density<true, true>(SPH_GEO_ARGS, rho_raw, omega_raw,
                                     worklist, count, n, wg, stream);
 }
 
@@ -1004,15 +1077,15 @@ int pack_force(const float* pos, const float* vel, const float* mass,
 }
 
 // Short-range gravity sums on the gravity sort; split is {r_s, r_cut}.
-int grav_short(SPH_GRAV_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
+int grav_short(SPH_GEO_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
                void* stream) {
-  return launch_grav_short<false>(SPH_GRAV_ARGS, split, gx, gy, gz, nullptr,
+  return launch_grav_short<false>(SPH_GEO_ARGS, split, gx, gy, gz, nullptr,
                                   nullptr, n, wg, stream);
 }
 
-int grav_short_gated(SPH_GRAV_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
+int grav_short_gated(SPH_GEO_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
                      int n, int wg, void* stream) {
-  return launch_grav_short<true>(SPH_GRAV_ARGS, split, gx, gy, gz, worklist,
+  return launch_grav_short<true>(SPH_GEO_ARGS, split, gx, gy, gz, worklist,
                                  count, n, wg, stream);
 }
 

@@ -33,10 +33,11 @@ has no counterpart: it exists for Mosaic, and walking the true ranges
 computes what it computes.  Because nothing is capped, `window_overflow`
 is 0.
 
-The force and gravity kernels test every candidate of a row's windows
-with one 16-byte load (x, y, z and the key's bits, `pack_geometry`) and
-run the pair arithmetic on the survivors only, reading the other fields
-from one record per particle.  `pack_force` forms those records once per
+Every kernel tests each candidate of a row's windows with one 16-byte
+load (x, y, z and the key's bits, `pack_geometry`) and runs the pair
+arithmetic on the survivors only.  The density and gravity kernels stage
+the masked mass beside those records; the force kernels read the other
+fields from one record per particle, which `pack_force` forms once per
 force launch: on the card with the `pack_force` kernel (counted in
 `pack_force.launches`), on the CPU, where nothing needs them, as its plain
 version `pack_force_plain`.
@@ -79,8 +80,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("sph_pairs")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, n_ptr, tail in (
-            ("density_fixed_h", 9, [i32, i32, ptr]),
-            ("density_var_h", 10, [i32, i32, ptr]),
+            ("density_fixed_h", 6, [i32, i32, ptr]),
+            ("density_var_h", 7, [i32, i32, ptr]),
             ("force_fixed_h", 13, [i32, i32, f32, f32, ptr]),
             ("force_var_h", 13, [i32, i32, f32, f32, ptr]),
             ("force_fixed_h_grav", 17, [i32, i32, f32, f32, ptr]),
@@ -147,17 +148,9 @@ def _launch(fn, *args):
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
-def _soa(p: Particles):
-    """[3, N] positions and the masked mass of the sorted rows (dead
-    particles carry mass 0, as in the TPU pack)."""
-    return (p.pos.t().contiguous(),
-            torch.where(p.alive, p.mass, 0.0).contiguous())
-
-
 def pack_geometry(pos: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     """[N, 4] int32 records (the bits of x, y, z, then the cell key): the
-    one 16-byte load per candidate of the force and gravity kernels'
-    candidate test.  Integer copies only, so any int32 key keeps its bits
+    one 16-byte load per candidate of the pair kernels' candidate test.  Integer copies only, so any int32 key keeps its bits
     (the TPU pack, pallas_pairs.py:78-104, carried the key's bits in a
     float row for its own reasons)."""
     return torch.cat([pos.contiguous().view(torch.int32), key[:, None]],
@@ -247,11 +240,12 @@ def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
         return density_sums_plain(p, cfg, grid, active)
     n = p.capacity
     groups = _groups(n, cfg, grid)
-    pos, m = _soa(p)
+    # dead particles carry mass 0, as in the TPU pack
+    m = torch.where(p.alive, p.mass, 0.0)
     h = p.h.contiguous()
-    _check_cuda_inputs(n, groups,
-                       {"x": pos[0], "y": pos[1], "z": pos[2], "m": m,
-                        "h": h}, {"key": grid.key}, grid)
+    _check_cuda_inputs(n, groups, {"x": p.pos[:, 0], "m": m, "h": h},
+                       {"key": grid.key}, grid, packed=("x",))
+    geo = pack_geometry(p.pos, grid.key)
     gated = active is not None
     gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
     var = cfg.fixed_h is None
@@ -262,8 +256,7 @@ def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
     name = ("density_var_h" if var else "density_fixed_h") + (
         "_gated" if gated else "")
     _launch(getattr(_library(), name),
-            pos[0].data_ptr(), pos[1].data_ptr(), pos[2].data_ptr(),
-            m.data_ptr(), h.data_ptr(), grid.key.data_ptr(),
+            geo.data_ptr(), m.data_ptr(), h.data_ptr(),
             grid.starts.data_ptr(), grid.ends.data_ptr(),
             *(outs[c].data_ptr() for c in range(2 if var else 1)), *gate,
             n, cfg.window_group, stream)

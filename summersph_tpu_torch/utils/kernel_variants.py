@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of `csrc/sph_pairs.cu`, made by text substitution, on the
-full-size inputs of the force and gravity kernels on one CUDA card: where a
-kernel's time goes, and what a constant is worth.
+full-size inputs of the pair kernels on one CUDA card: where a kernel's
+time goes, and what a constant is worth.
 
     python3 summersph_tpu_torch/utils/kernel_variants.py [NAME:OLD=>NEW ...]
 
@@ -12,16 +12,17 @@ compacted, the pair arithmetic skipped) and `no_test` (candidates are
 staged, nothing is tested: what staging, the empty compaction, the row
 reductions, the stores and the launch cost).  Each further argument adds a
 variant NAME in which the text OLD is replaced by NEW (OLD must occur), for
-example  rows4:ROWS_FORCE = 2;=>ROWS_FORCE = 4;
+example  rows8:ROWS_DENSITY = 4;=>ROWS_DENSITY = 8;
 
 All variants are compiled at once (one nvcc each) into the build directory,
 their ptxas registers and shared memory are printed, and each is timed with
 CUDA events (10 launches through the wrapper, so the pack is included)
 twice, in the order base ... last, last ... base; printed is least /
 largest mean per kernel.  Inputs, at N = 1,048,576: the Keplerian disc's
-initial state (`force_fixed_h`; `force_fixed_h_grav` at grid 256;
-`grav_short` on the gravity sort at grid 128) and config 5's after its
-first h iteration (`force_var_h`), as chip_smoke.py builds them.
+initial state (`density_fixed_h`, `force_fixed_h`; `force_fixed_h_grav`
+at grid 256; `grav_short` on the gravity sort at grid 128) and config 5's
+after its first h iteration (`density_var_h`, `force_var_h`), as
+chip_smoke.py builds them.
 """
 
 import ctypes
@@ -99,7 +100,7 @@ def main():
         print(f"{name}: " + ", ".join(
             f"{k} {r} regs {s} B{' ' + note if note else ''}"
             for k, (r, s, note) in sorted(ptxas_summary(log).items())
-            if not k.startswith(("density", "pack"))), flush=True)
+            if not k.startswith("pack")), flush=True)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,6 +123,8 @@ def main():
     p52, grid5 = sort_particles(p5, cfg5, h_pad=cfg5.sort_h_pad)
     pd5 = cuda_pairs.pair_eval(p52, cfg5, grid5)[0]
     calls = {
+        "density_fixed_h": lambda: cuda_pairs.density_sums(p2, cfg, grid),
+        "density_var_h": lambda: cuda_pairs.density_sums(p52, cfg5, grid5),
         "force_fixed_h": lambda: cuda_pairs.force_sums(pd, cfg, grid),
         "force_fixed_h_grav": lambda: cuda_pairs.force_sums(pdf, cfg256,
                                                             gridf, splitf),

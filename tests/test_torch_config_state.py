@@ -2,6 +2,7 @@
 and defaults, an exact numpy round trip, and no jax import."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -17,6 +18,14 @@ from summersph_tpu_torch import state as tstate
 from summersph_tpu_torch.config import SimConfig
 
 REPO = Path(__file__).resolve().parent.parent
+
+# Under pytest-xdist each worker gets its share of the cores for torch's
+# intra-op threads.  Left at all the cores each, six workers' OpenMP threads
+# spin against each other and a small CPU op runs about 15x slower.  Every
+# worker imports every test module when it collects, so this one call sets
+# them all; the port's other test files import this module too.
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def jax_state_dict(state) -> dict:

@@ -1,9 +1,9 @@
-"""The force and gravity pair passes of `ops/cuda_pairs.py` on window
-shapes that are hard for a kernel (`models/ragged.py`): empty ranges,
-ranges of 1, 31, 32, 33 and 129 candidates, a last group that ends in dead
-rows, rows with no pair inside their support, a group whose every
-candidate is a pair, a tight clump, and an h gradient whose pairs reach
-only from their j side.
+"""The density, force and gravity pair passes of `ops/cuda_pairs.py` on
+window shapes that are hard for a kernel (`models/ragged.py`): empty
+ranges, ranges of 1, 31, 32, 33 and 129 candidates, groups of more than
+one chunk of candidates, a last group that ends in dead rows, rows with no
+pair inside their support, a group whose every candidate is a pair, a
+tight clump, and an h gradient whose pairs reach only from their j side.
 
 On the CPU the plain versions (`force_sums_plain` with fixed h, variable h
 and fused gravity; `grav_short_sums_plain`) are held against the JAX
@@ -217,8 +217,9 @@ def test_gated_plain_sums_equal_the_ungated_on_ragged_windows(name, var):
     rows = listed.repeat_interleave(WG)
     m = torch.where(p3.alive, p3.mass, 0.0)
     for active in (None, gate):
-        sums = _flat(cuda_pairs.force_sums_plain(p3, cfg, grid, split,
-                                                 active))
+        sums = list(cuda_pairs.density_sums_plain(p3, cfg, grid, active))
+        sums += _flat(cuda_pairs.force_sums_plain(p3, cfg, grid, split,
+                                                  active))
         sums += cuda_pairs.grav_short_sums_plain(p3.pos, m, p3.h, grid, cfg,
                                                  split, active)
         if active is None:
@@ -370,6 +371,45 @@ def test_cuda_force_kernels_on_ragged_windows(cuda_device, name, var):
             unfused = ours
         else:
             assert all(torch.equal(a, b) for a, b in zip(ours[:5], unfused))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,var", FORMS, ids=FORM_IDS)
+def test_cuda_density_kernels_on_ragged_windows(cuda_device, name, var):
+    """`density_fixed_h` / `density_var_h` and their gated forms on the
+    card: rho_raw against the plain version at rtol 2e-5, Omega_raw (a sum
+    of both signs) in float64, each launch counted once, two launches equal
+    bit for bit, a gated launch equal to the ungated one on the listed rows
+    and 0 elsewhere, at a partial and at a full worklist."""
+    _, p3, grid, cfg, _ = _sorted_state(name, var, device=cuda_device)
+    attr = "var_launches" if var else "launches"
+    n0 = getattr(cuda_pairs.density_sums, attr)
+    ours = cuda_pairs.density_sums(p3, cfg, grid)
+    torch.cuda.synchronize()
+    assert getattr(cuda_pairs.density_sums, attr) == n0 + 1
+    again = cuda_pairs.density_sums(p3, cfg, grid)
+    assert all(torch.equal(a, b) for a, b in zip(ours, again))
+    plain = cuda_pairs.density_sums_plain(p3, cfg, grid)
+    torch.testing.assert_close(ours[0], plain[0], rtol=2e-5, atol=0.0)
+    assert bool((ours[0] > 0).any())
+    if var:
+        _hold_f64(("omega_raw",), ours[1:], plain[1:],
+                  cuda_pairs.density_sums_plain(_f64(p3), cfg, grid)[1:])
+    else:
+        assert not ours[1].any()
+    act = p3.alive & (p3.pos[:, 0] < p3.pos[p3.alive, 0].median())
+    gated_attr = ("var_" if var else "") + "gated_launches"
+    for on in (act, torch.ones_like(act)):
+        gate = group_worklist(on, WG)
+        listed = torch.zeros(p3.capacity // WG, dtype=torch.bool,
+                             device=cuda_device)
+        listed[gate[0][:int(gate[1])].long()] = True
+        rows = listed.repeat_interleave(WG)
+        n0 = getattr(cuda_pairs.density_sums, gated_attr)
+        gated = cuda_pairs.density_sums(p3, cfg, grid, gate)
+        assert getattr(cuda_pairs.density_sums, gated_attr) == n0 + 1
+        for a, b in zip(ours, gated):
+            assert torch.equal(a[rows], b[rows]) and not b[~rows].any()
 
 
 @pytest.mark.gpu
