@@ -103,7 +103,27 @@ caught:
    unfused kernel's, and the `pack_force` kernel equal to its plain
    version bit for bit; the clump also with fixed h, for the density
    kernels only;
-17. print the kernels' JSON line (with each kernel's bound: the larger of
+17. the reference user's workflow through the CLI at full size
+   (`summersph_tpu_torch.cli.main` in this process, in a temporary
+   directory): `make-ics disc --n 1048576 --seed 0`; `run` with bench.py's
+   headline physics (--fixed-h h0, --gamma 1.4, --bounding-size 1500, dt
+   and window knobs through --set), the default neighbor_mode ('grid', run
+   on the sorted engine), 4 saves, to the t that phase 5 reached in
+   2 x STEPS steps: density_fixed_h and force_fixed_h launched once a step
+   plus once for prime and no other pair kernel, every health counter zero
+   on every segment, 4 saveN.txt files of the live gas and sink rows, the
+   checkpoint's live gas equal to the last snapshot's columns at float32;
+   `resume` with --gravity pm --set grav_grid=128 for 2 more ticks:
+   grav_short and the mesh solve once a step plus once for prime, the
+   resumed config the saved one with only the flags given changed, t
+   risen, check_health; the z-projected density image of the last snapshot
+   on the card at 40^3 (64 columns within rtol 1e-4 of a float64 numpy
+   sum, the array saved with np.save and read back); the Sod tube
+   (n = 400) with `simulate` to t = 0.1, its L2 density error below 0.03.
+   It prints the seconds of every file read and write, the steps,
+   particle-steps/s with the file I/O taken out, and the seconds of the
+   image;
+18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
    the rows and pairs of the listed groups only) and, last,
@@ -122,6 +142,7 @@ It exits non-zero, printing no result, when torch.cuda.is_available() is
 false.  No JAX is imported.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1574,6 +1595,291 @@ def ab_legs(s0, cfg_b, tight, base_steps, label, counters):
           f"time per unit of simulated time", flush=True)
 
 
+IMAGE_RES = 40      # phase 17's image: 40^3 grid points against every particle
+SOD_N, SOD_T, SOD_L2_MAX = 400, 0.1, 0.03
+
+
+@contextlib.contextmanager
+def io_timed(log, run):
+    """Inside the block, every file read and write of the port's I/O
+    appends (name, seconds) to `log`, and every `integrate.run_steps` call
+    adds its steps to run["steps"] and takes the running maximum of its
+    health counters into run["stats"].  It wraps the module attributes the
+    CLI and `run_until` look up when they call them."""
+    import torch
+    from summersph_tpu_torch import integrate
+    from summersph_tpu_torch.io import checkpoint, txt
+    from summersph_tpu_torch.tools import make_ics
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (txt, "read_ic_txt"), (txt, "write_snapshot_txt"),
+        (make_ics, "write_snapshot_txt"), (checkpoint, "save_npz"),
+        (checkpoint, "load_npz_with_config"), (integrate, "run_steps"))]
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            log.append((name, time.perf_counter() - t0))
+            return out
+        return call
+
+    def counted(fn):
+        def call(state, cfg, n_steps):
+            out = fn(state, cfg, n_steps)
+            run["steps"] += n_steps
+            run["stats"] = torch.maximum(run.get("stats", out.stats),
+                                         out.stats)
+            return out
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(fn) if name == "run_steps"
+                else timed(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def print_io(log, label):
+    for name, sec in log:
+        print(f"[{label}] {name}: {sec:.3f} s", flush=True)
+
+
+def snapshot_rows(path):
+    with open(path, "rb") as f:
+        return f.read().count(b"\n")
+
+
+def cli_run_checks(launches, run, label):
+    """One pair-kernel launch of each of `run`'s kernels a step plus one
+    for prime, no other pair kernel, health counters zero."""
+    steps = run["steps"]
+    pair = {k: v for k, v in nonzero(launches).items()
+            if k not in ("pack_force", "mesh solves")}
+    print(f"[{label}] {steps} steps; launches {nonzero(launches)}",
+          flush=True)
+    require(steps > 0, f"{label}: no step taken")
+    require(not any(run["stats"].tolist()),
+            f"{label}: health counters {run['stats'].tolist()}")
+    require_packs(launches, label)
+    return steps, pair
+
+
+def column_densities(path, xi, cols, h, box):
+    """The z-projected density of `cols` (pairs of grid indices) in float64
+    numpy, from the snapshot's own text: sum over the z grid points of
+    sum_j m_j W(|x_g - x_j|, h) over the gas rows inside the box."""
+    import numpy as np
+
+    raw = np.loadtxt(path, skiprows=1, ndmin=2)
+    gas = raw[raw[:, 6] != 0.0]
+    gas = gas[np.all(np.abs(gas[:, :3]) < box, axis=1)]
+    pos, m = gas[:, :3], gas[:, 7]
+    out = []
+    for i, j in cols:
+        near = ((np.abs(pos[:, 0] - xi[i]) < 2 * h)
+                & (np.abs(pos[:, 1] - xi[j]) < 2 * h))
+        g = np.stack(np.broadcast_arrays(xi[i], xi[j], xi), axis=-1)
+        q = np.linalg.norm(g[:, None, :] - pos[near][None], axis=-1) / h
+        w = np.where(q <= 1.0, 1.0 - 1.5 * q * q + 0.75 * q ** 3,
+                     np.where(q <= 2.0, 0.25 * (2.0 - q) ** 3, 0.0))
+        out.append(float(np.sum(m[near] * w / (np.pi * h ** 3))))
+    return np.array(out)
+
+
+def cli_path(dev, n, t_end):
+    """Phase 17: the reference user's workflow through the CLI in this
+    process, in a temporary directory: make-ics, run with the default
+    neighbor_mode ('grid') to t_end (the disc's t after 2 x STEPS steps in
+    phase 5), resume with TreePM, the image of the last snapshot, and the
+    Sod tube with `simulate`."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from summersph_tpu_torch import cli
+    from summersph_tpu_torch.config import SimConfig
+    from summersph_tpu_torch.integrate import check_health, simulate
+    from summersph_tpu_torch.io import checkpoint as ck_io
+    from summersph_tpu_torch.io import txt as txt_io
+    from summersph_tpu_torch.models.sod import (sod_config, sod_ic,
+                                                sod_l2_density_error)
+    from summersph_tpu_torch.tools.density_image import \
+        projected_density_from_snapshot
+
+    cfg, h0 = bench_config(n)
+    sets = [f"{k}={getattr(cfg, k)}" for k in (
+        "dt_init", "dt_min", "dt_max", "sorted_block", "window_group",
+        "window_blocks", "pallas_window", "pallas_fetch_window",
+        "grav_window_blocks", "use_pallas")]
+    set_flags = [a for kv in sets for a in ("--set", kv)]
+    device = ["--device", str(dev)]
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ic = os.path.join(tmp, "disc.txt")
+        out, res = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+
+        # 1. the IC file
+        label = f"N={n} cli make-ics"
+        log = []
+        t0 = time.perf_counter()
+        with io_timed(log, {}):
+            require(cli.main(["make-ics", "disc", "--n", str(n), "--seed",
+                              "0", "--out", ic, *device]) == 0,
+                    "make-ics failed")
+        print(f"[{label}] {time.perf_counter() - t0:.3f} s in all; "
+              f"{os.path.getsize(ic) / 2**20:.1f} MiB", flush=True)
+        print_io(log, label)
+
+        # 2. run the disc with the default neighbor_mode
+        label = f"N={n} cli run"
+        log, run = [], {"steps": 0}
+        reset_counts()
+        t0 = time.perf_counter()
+        with io_timed(log, run):
+            require(cli.main([
+                "run", "--ic", ic, "--out", out, "--fixed-h", repr(h0),
+                "--gamma", "1.4", "--bounding-size", "1500", "--end-time",
+                repr(t_end), "--n-saves", "4", *set_flags, *device]) == 0,
+                "run failed")
+        run_s = time.perf_counter() - t0
+        launches = launch_counts()
+        steps, pair = cli_run_checks(launches, run, label)
+        for name in ("density_fixed_h", "force_fixed_h"):
+            require(pair.get(name) == 1 + steps,
+                    f"{label}: {name} launched {pair.get(name)}, expected "
+                    f"{1 + steps}")
+        require(set(pair) == {"density_fixed_h", "force_fixed_h"},
+                f"{label}: other pair kernels launched: {pair}")
+        io_s = sum(sec for _, sec in log)
+        print_io(log, label)
+        print(f"[{label}] {run_s:.3f} s in all, {io_s:.3f} s of it in file "
+              f"I/O; {n * steps / (run_s - io_s):.6e} particle-steps/s with "
+              f"the I/O taken out (prime and the tick diagnostics in)",
+              flush=True)
+        results["run"] = {"steps": steps, "launches": pair}
+
+        log = []
+        with io_timed(log, {}):
+            # through the modules, so that io_timed sees the calls
+            ck, ck_cfg = ck_io.load_npz_with_config(
+                os.path.join(out, "checkpoint.npz"), device=dev)
+            snap, _ = txt_io.read_ic_txt(os.path.join(out, "save3.txt"),
+                                         ck_cfg, device=dev)
+        print_io(log, f"{label} checkpoint and last snapshot read back")
+        require(ck_cfg.neighbor_mode == "grid" and ck_cfg.fixed_h == h0,
+                f"{label}: checkpoint config {ck_cfg}")
+        check_health(ck, where=label)
+        p = ck.particles
+        live = p.alive
+        n_live, n_sinks = int(live.sum()), int(ck.sinks.alive.sum())
+        saves = sorted(f for f in os.listdir(out) if f.startswith("save"))
+        require(saves == [f"save{i}.txt" for i in range(4)],
+                f"{label}: saves {saves}")
+        rows = [snapshot_rows(os.path.join(out, f)) for f in saves]
+        print(f"[{label}] rows (header, gas, sinks) of {saves}: {rows}; "
+              f"checkpoint {n_live} gas + {n_sinks} sinks at "
+              f"t={float(ck.t):.6g}", flush=True)
+        require(rows[-1] == 1 + n_live + n_sinks,
+                f"{label}: last snapshot has {rows[-1]} lines")
+        require(all(1 + n_live + n_sinks <= r <= 1 + n + n_sinks
+                    for r in rows), f"{label}: snapshot rows {rows}")
+        order = torch.argsort(p.pid[live])
+        for name in ("pos", "vel", "u", "mass", "alpha"):
+            require(torch.equal(getattr(p, name)[live][order],
+                                getattr(snap, name)[:n_live][order]),
+                    f"{label}: checkpoint {name} differs from save3.txt")
+        print(f"[{label}] checkpoint live gas equal to save3.txt's columns "
+              f"at float32, row for row", flush=True)
+
+        # 3. resume with TreePM for two more ticks
+        label = f"N={n} cli resume --gravity pm"
+        log, run = [], {"steps": 0}
+        reset_counts()
+        t0 = time.perf_counter()
+        with io_timed(log, run):
+            require(cli.main([
+                "resume", os.path.join(out, "checkpoint.npz"), "--out", res,
+                "--gravity", "pm", "--set", "grav_grid=128", "--end-time",
+                repr(2.2 * t_end), "--n-saves", "2", *device]) == 0,
+                "resume failed")
+            ck2, ck2_cfg = ck_io.load_npz_with_config(
+                os.path.join(res, "checkpoint.npz"), device=dev)
+        resume_s = time.perf_counter() - t0
+        launches = launch_counts()
+        steps, pair = cli_run_checks(launches, run, label)
+        for name in ("grav_short", "mesh solves", "density_fixed_h",
+                     "force_fixed_h"):
+            require(launches[name] == 1 + steps,
+                    f"{label}: {name} counted {launches[name]}, expected "
+                    f"{1 + steps}")
+        require(set(pair) == {"density_fixed_h", "force_fixed_h",
+                              "grav_short"},
+                f"{label}: other pair kernels launched: {pair}")
+        require(ck2_cfg == ck_cfg.with_(gravity="pm", grav_grid=128,
+                                        end_time=2.2 * t_end, n_saves=2),
+                f"{label}: resumed config {ck2_cfg}")
+        check_health(ck2, where=label)
+        rise = float(ck2.t) - float(ck.t)
+        require(rise > 0, f"{label}: t rose by {rise}")
+        print_io(log, label)
+        print(f"[{label}] {resume_s:.3f} s in all; t {float(ck.t):.6g} -> "
+              f"{float(ck2.t):.6g}; {int(ck2.particles.n_alive)} gas",
+              flush=True)
+        results["resume"] = {"steps": steps, "launches": pair,
+                             "mesh solves": launches["mesh solves"]}
+
+        # 4. the image of the last snapshot
+        label = f"N={n} image"
+        last = os.path.join(res, "save1.txt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proj, xi, sink_xy = projected_density_from_snapshot(
+            last, resolution=IMAGE_RES, device=dev)
+        image_s = time.perf_counter() - t0
+        h_img, box = SimConfig().fixed_h, 100.0
+        rng = np.random.default_rng(0)
+        cols = rng.integers(0, IMAGE_RES, (64, 2))
+        ref = column_densities(last, xi, cols, h_img, box)
+        got = proj[cols[:, 0], cols[:, 1]].astype(np.float64)
+        err = np.abs(got - ref)
+        bad = err > 1e-4 * np.abs(ref) + 1e-7 * float(proj.max())
+        require(not bad.any(), f"{label}: {int(bad.sum())} of 64 columns "
+                f"off the float64 sum, worst {float(err.max()):.3e}")
+        np.save(os.path.join(tmp, "image.npy"), proj)
+        require(np.array_equal(np.load(os.path.join(tmp, "image.npy")),
+                               proj), f"{label}: the saved array differs")
+        print(f"[{label}] {IMAGE_RES}^3 grid against the snapshot's gas in "
+              f"{image_s:.3f} s (the file read included); 64 columns "
+              f"within rtol 1e-4 of a float64 numpy sum, max abs error "
+              f"{float(err.max()):.3e} of max {float(proj.max()):.3e}; "
+              f"{len(sink_xy)} sinks", flush=True)
+        results["image_s"] = image_s
+
+    # 5. the Sod tube on the card
+    label = f"Sod n={SOD_N}"
+    scfg = sod_config(n=SOD_N).with_(
+        end_time=SOD_T, n_saves=1, neighbor_mode="sorted", sorted_block=128,
+        window_group=32, window_blocks=4)
+    state, _ = sod_ic(n=SOD_N, cfg=scfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = simulate(state, scfg, verbose=False)
+    sod_s = time.perf_counter() - t0
+    l2 = sod_l2_density_error(state)
+    print(f"[{label}] simulate to t={float(state.t):.6g} in {sod_s:.3f} s: "
+          f"L2 density error {l2:.6f} (bound {SOD_L2_MAX})", flush=True)
+    require(l2 < SOD_L2_MAX and int(state.particles.n_alive) == SOD_N,
+            f"{label}: L2 {l2}, {int(state.particles.n_alive)} alive")
+    results["sod_l2"] = l2
+    return results
+
+
 def main():
     import torch
 
@@ -1662,6 +1968,7 @@ def main():
     print(f"[{label}] candidates per row: mean {float(ext.float().mean()):.1f}"
           f" max {int(ext.max())}", flush=True)
     results = sph_kernels(p2, grid, cfg, label)
+    t_disc = float(out.t)  # the disc's t after 2 x STEPS steps from the ICs
     phase_done("5 (N=1048576, gravity none)")
 
     # -- phase 6: the fused TreePM path at full size (pm_every 8)
@@ -1823,7 +2130,11 @@ def main():
     ragged_checks(dev)
     phase_done("16 (ragged windows)")
 
-    # -- phase 17: results
+    # -- phase 17: the CLI at full size: make-ics, run, resume, image, Sod
+    cli_path(dev, n, t_disc)
+    phase_done("17 (N=1048576, the CLI)")
+
+    # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],
                 "pack_force": c5_launches["pack_force"],
                 "force_fixed_h": none_launches["force_fixed_h"],

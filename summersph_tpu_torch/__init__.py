@@ -10,19 +10,24 @@ gravity -> KDK leapfrog with the adaptive global timestep, or with
 cfg.dt_bins > 1 block timesteps on power-of-two rungs, whose substeps run
 the pair kernels in their gated forms on the closing rows only -> with
 variable h the Newton h-iteration and sink creation -> sink accretion,
-merging and bounds culling.  Entry points put their state on the card unless the
-caller asks for the CPU; on the CPU every kernel is replaced by its plain
-PyTorch version.  The package imports torch and numpy, never jax.
+merging and bounds culling.  `run_until` and `simulate` drive it to an end
+time with the reference's `.txt` snapshots (`io`), and `python -m
+summersph_tpu_torch` is its command line (`cli`).  Entry points put their
+state on the card unless the caller asks for the CPU; on the CPU every
+kernel is replaced by its plain PyTorch version.  The package imports torch
+and numpy, never jax.
 """
 
-from .config import SimConfig
-from .integrate import force_eval, prime, run_steps, step
+from .config import SimConfig, read_parameters_txt, write_parameters_txt
+from .integrate import force_eval, prime, run_steps, run_until, simulate, step
 from .blockstep import step_binned
 from .state import Particles, SimState, Sinks, from_numpy, to_numpy
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "SimConfig", "Particles", "Sinks", "SimState", "to_numpy", "from_numpy",
-    "force_eval", "prime", "step", "run_steps", "step_binned",
+    "SimConfig", "read_parameters_txt", "write_parameters_txt",
+    "Particles", "Sinks", "SimState", "to_numpy", "from_numpy",
+    "force_eval", "prime", "step", "run_steps", "run_until", "simulate",
+    "step_binned",
 ]

@@ -16,6 +16,12 @@ window group's true candidate range, so no window size can drop a pair.
 needs it; `grav_fft='matmul'` names the one `torch.fft` path.
 Configurations the port does not run yet raise `NotImplementedError` at
 the first force evaluation (`integrate.check_supported`).
+`neighbor_mode='grid'` runs on the sorted engine: the hashed grid exists
+in the JAX package for the TPU's gather costs, and both engines sum the
+same pairs.
+
+`read_parameters_txt` / `write_parameters_txt` read and write the
+reference `parameters.txt`, byte for byte as the JAX package does.
 """
 
 from __future__ import annotations
@@ -80,7 +86,7 @@ class SimConfig:
     grav_fuse_short: bool = False       # short range in the force kernel
     pm_every: int = 1                   # far field held between solves
 
-    # --- neighbour search: only 'sorted' is ported
+    # --- neighbour search: 'sorted', and 'grid' run on the sorted engine
     neighbor_mode: str = "grid"
     cell_cap: int = 64
     sorted_block: int = 128             # padding granule only
@@ -130,4 +136,36 @@ class SimConfig:
         return min(max(2.25 / t, 3.0), 8.0)
 
 
-__all__ = ["SimConfig"]
+_PARAM_FIELDS = (
+    "bounding_size", "max_depth", "theta", "gamma", "eta",
+    "convergence_criteria", "max_length", "timestep_scale", "end_time",
+)
+
+
+def read_parameters_txt(path, base: Optional[SimConfig] = None) -> SimConfig:
+    """Read the reference `parameters.txt`: a header line, then one line of
+    the nine fields in `_PARAM_FIELDS` order.  A parameter file implies the
+    variable-h code path, so `fixed_h` is cleared unless `base` is given."""
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    if len(lines) < 2:
+        raise ValueError(f"{path}: expected header + data line")
+    vals = lines[-1].split()
+    if len(vals) < 9:
+        raise ValueError(f"{path}: expected 9 fields, got {len(vals)}")
+    kw = {name: int(raw) if name == "max_depth" else float(raw)
+          for name, raw in zip(_PARAM_FIELDS, vals)}
+    cfg = base if base is not None else SimConfig(fixed_h=None)
+    return cfg.with_(**kw)
+
+
+def write_parameters_txt(path, cfg: SimConfig) -> None:
+    """Write a reference-compatible `parameters.txt`."""
+    with open(path, "w") as f:
+        f.write(" ".join(_PARAM_FIELDS) + "\n")
+        f.write(" ".join(
+            str(int(getattr(cfg, n))) if n == "max_depth"
+            else repr(float(getattr(cfg, n))) for n in _PARAM_FIELDS) + "\n")
+
+
+__all__ = ["SimConfig", "read_parameters_txt", "write_parameters_txt"]

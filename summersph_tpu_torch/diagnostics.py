@@ -1,5 +1,6 @@
-"""Conserved-quantity monitors.  Counterpart of `measure` and
-`format_report` in `summersph_tpu/diagnostics.py`.
+"""Conserved-quantity monitors and the NaN guard.  Counterpart of
+`measure`, `format_report` and `nan_guard` in
+`summersph_tpu/diagnostics.py`.
 
 The conserved sums accumulate in float64 whatever the state's dtype.  The
 potential energy is a direct pair sum, O(N^2): `include_potential` is for
@@ -86,4 +87,14 @@ def format_report(d: Dict) -> str:
     return msg
 
 
-__all__ = ["measure", "format_report"]
+def nan_guard(state: SimState) -> bool:
+    """True if any live particle carries a non-finite pos, vel, u or rho."""
+    p = state.particles
+    ok = torch.ones((), dtype=torch.bool, device=p.pos.device)
+    for arr in (p.pos, p.vel, p.u, p.rho):
+        a = arr if arr.ndim == 1 else torch.sum(arr, dim=-1)
+        ok = ok & torch.all(torch.where(p.alive, torch.isfinite(a), True))
+    return not bool(ok)
+
+
+__all__ = ["measure", "format_report", "nan_guard"]

@@ -25,14 +25,23 @@ PyTorch runs eagerly, so `run_steps` is a Python loop.  `t`, `dt`, the
 held PM split and the health counters stay on the device; nothing in a
 step waits for the card.  The far-field phase of `cfg.pm_every` is a host
 integer (`run_steps` passes step % pm_every, phase 0 first).
-Configurations outside the ported path raise `NotImplementedError`
-(`check_supported`).
+`run_until` advances in segments of `run_steps` with one host read of `t`
+between them, and `simulate` is the user's run loop: `cfg.n_saves` evenly
+spaced `saveN.txt` snapshots up to `cfg.end_time`, a diagnostics line per
+tick and the health checks.
+
+`neighbor_mode='grid'` runs on the sorted engine: the JAX package's hashed
+grid exists because gathers are dear on the TPU, and both engines sum the
+same pairs.  Configurations outside the ported path raise
+`NotImplementedError` (`check_supported`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+import os
+import time
+from typing import Callable, Optional
 
 import torch
 
@@ -44,7 +53,7 @@ from .ops.pm_gravity import (PM_MODES, gas_gravity_pm, gas_gravity_pm_held,
                              recompute_far_field)
 from .ops.sinks import accrete, create_sinks, cull_bounds, merge_sinks
 from .ops.smoothing import update_smoothing
-from .ops.sorted_grid import sort_particles
+from .ops.sorted_grid import SORTED_MODES, sort_particles
 from .ops.timestep import next_timestep
 from .state import Particles, SimState, Sinks
 
@@ -53,9 +62,9 @@ def check_supported(cfg: SimConfig, axis_name: Optional[str] = None):
     """Raise NotImplementedError for a configuration the port does not run
     yet (ROADMAP.md lists the later slices)."""
     problems = []
-    if cfg.neighbor_mode != "sorted":
+    if cfg.neighbor_mode not in SORTED_MODES:
         problems.append(f"neighbor_mode={cfg.neighbor_mode!r} "
-                        f"(only 'sorted')")
+                        f"(only 'sorted' and 'grid')")
     if axis_name is not None:
         problems.append(f"multi-device runs (axis_name={axis_name!r})")
     if problems:
@@ -284,6 +293,10 @@ def init_carries(state: SimState, cfg: SimConfig) -> SimState:
     return state.replace(particles=p, pm_r_s=pm_r_s)
 
 
+# The name the JAX package keeps for code written before the PM carries.
+init_kahan = init_carries
+
+
 def prime(state: SimState, cfg: SimConfig) -> SimState:
     """Evaluate forces at the current positions (acc/du/dalpha and
     rho/P/cs/omega, and with cfg.pm_every > 1 a fresh acc_ext), as the
@@ -317,6 +330,17 @@ def run_steps(state: SimState, cfg: SimConfig, n_steps: int) -> SimState:
             out = _step(state, cfg, None, i % every, held_valid=i > 0)
         state = out.replace(stats=torch.maximum(out.stats, state.stats))
     return state
+
+
+def check_coverage(state: SimState, cfg: SimConfig, warn: bool = True) -> int:
+    """Neighbour candidates the pair passes would drop for the current
+    particle distribution (`cuda_pairs.window_overflow`).  The kernels and
+    their plain versions walk every window group's whole candidate range,
+    so this is 0 and `warn` has nothing to warn about; the JAX package's
+    static windows can drop pairs, and its signature is kept."""
+    h_pad = 1.0 if cfg.fixed_h is not None else cfg.sort_h_pad
+    _, grid = sort_particles(state.particles, cfg, h_pad=h_pad)
+    return int(window_overflow(grid, cfg))
 
 
 def warn_stats(state: SimState, tick: Optional[int] = None) -> bool:
@@ -356,6 +380,60 @@ def check_health(state: SimState, where: str = "") -> None:
             f"(t={t:.6g}, dt={dt:.3g}, N={n_alive}): " + "; ".join(problems))
 
 
+def run_until(state: SimState, t_stop, cfg: SimConfig,
+              max_steps: int = 1_000_000, steps_per_sync: int = 8) -> SimState:
+    """Advance until t >= t_stop, in `run_steps` segments of
+    `steps_per_sync` steps with one host read of `t` between them.  It may
+    overshoot t_stop by up to steps_per_sync - 1 steps, as the JAX
+    package's `run_until` does."""
+    t_stop = float(t_stop)
+    done = 0
+    while float(state.t) < t_stop and done < max_steps:
+        state = run_steps(state, cfg, steps_per_sync)
+        done += steps_per_sync
+    return state
+
+
+def simulate(
+    state: SimState,
+    cfg: SimConfig,
+    out_dir: Optional[str] = None,
+    snapshot_columns: int = 9,
+    on_tick: Optional[Callable[[int, SimState], None]] = None,
+    verbose: bool = True,
+) -> SimState:
+    """Run to cfg.end_time with cfg.n_saves evenly spaced ticks.  At each
+    tick: a diagnostics line, `warn_stats`, the `saveN.txt` snapshot in
+    `out_dir`, `on_tick`, then `check_health`.  Every saveN index is
+    written: ticks that one segment passes get the same state."""
+    from .diagnostics import format_report, measure
+    from .io.txt import save_path, write_snapshot_txt
+
+    check_coverage(state, cfg, warn=True)
+    if cfg.reuse_forces:
+        state = prime(state, cfg)
+    ticks = [cfg.end_time * (i + 1) / cfg.n_saves for i in range(cfg.n_saves)]
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    for i, t_tick in enumerate(ticks):
+        t0 = time.time()
+        if float(state.t) < t_tick:
+            state = run_until(state, t_tick, cfg)
+        if verbose:
+            print(f"[tick {i}] {format_report(measure(state))} "
+                  f"wall: {time.time() - t0:.2f}s", flush=True)
+        warn_stats(state, tick=i)
+        if out_dir:
+            write_snapshot_txt(save_path(out_dir, i), state.particles,
+                               state.sinks, columns=snapshot_columns)
+        if on_tick is not None:
+            on_tick(i, state)
+        check_health(state, where=f"at tick {i}")
+    return state
+
+
 __all__ = ["check_supported", "force_eval", "kick", "drift", "step",
-           "init_carries", "prime", "run_steps", "warn_stats",
-           "check_health", "SimulationDiverged"]
+           "init_carries", "init_kahan", "prime", "run_steps", "run_until",
+           "simulate", "check_coverage", "warn_stats", "check_health",
+           "SimulationDiverged"]

@@ -8,9 +8,13 @@ support 2h, q = r / h):
     dW/dr   = w'(q) / (pi h^4)     dW/dh = -(3 W + r dW/dr) / h
 
 and the spline softening factor f(q) that multiplies G M / r^2.
+`dwdh_reference_compat` is the reference's variable-h dW/dh expression and
+`KernelTable` its tabulated kernel; both exist for parity checks only.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -60,6 +64,14 @@ def kernel_dwdh(r, h):
     return -(3.0 * w + r * dw) / h
 
 
+def dwdh_reference_compat(r, h):
+    """The reference variable-h generation's dW/dh, (3W - r dW/dr) / h
+    (a sign slip on the 3W term).  For parity checks only; the engine uses
+    `kernel_dwdh`."""
+    w, dw = kernel_w_dw(r, h)
+    return (3.0 * w - r * dw) / h
+
+
 def grav_shape(q):
     """Softening factor f(q) for the force G M f(q) / r^2; 1 beyond 2h."""
     q2 = q * q
@@ -76,5 +88,44 @@ def grav_softening(r, h):
     return grav_shape(r / h)
 
 
+@dataclasses.dataclass(frozen=True)
+class KernelTable:
+    """The kernel tabulated on nq + 1 points over q in [0, 2] and linearly
+    interpolated, as the reference does (nq = 5000 in its fixed-h
+    generation).  The tables are float64 on the CPU; `w`, `dw` and `grav`
+    take tensors and return the interpolated values."""
+
+    nq: int = 5000
+
+    def __post_init__(self):
+        dq = 2.0 / self.nq
+        q = torch.arange(self.nq + 1, dtype=torch.float64) * dq
+        object.__setattr__(self, "_w", w_shape(q))
+        object.__setattr__(self, "_dw", dw_shape(q))
+        object.__setattr__(self, "_g", grav_shape(q))
+        object.__setattr__(self, "_dq", dq)
+
+    def _interp(self, table, q):
+        table = table.to(device=q.device, dtype=q.dtype)
+        i = torch.clamp((q / self._dq).to(torch.int64), 0, self.nq - 1)
+        frac = (q - i.to(q.dtype) * self._dq) / self._dq
+        return (1.0 - frac) * table[i] + frac * table[i + 1]
+
+    def _lookup(self, table, r, h, outside):
+        q = torch.as_tensor(r / h)
+        val = self._interp(table, torch.clamp(q, max=2.0))
+        return torch.where(q <= 2.0, val, torch.full_like(val, outside))
+
+    def w(self, r, h):
+        return self._lookup(self._w, r, h, 0.0) / (PI * h ** 3)
+
+    def dw(self, r, h):
+        return self._lookup(self._dw, r, h, 0.0) / (PI * h ** 4)
+
+    def grav(self, r, h):
+        return self._lookup(self._g, r, h, 1.0)
+
+
 __all__ = ["w_shape", "dw_shape", "kernel_w", "kernel_dw", "kernel_w_dw",
-           "kernel_dwdh", "grav_shape", "grav_softening"]
+           "kernel_dwdh", "dwdh_reference_compat", "grav_shape",
+           "grav_softening", "KernelTable"]

@@ -37,7 +37,7 @@ import torch
 from ..config import SimConfig
 from ..state import Particles
 from .cuda_pairs import density
-from .sorted_grid import SortedGrid, sort_particles
+from .sorted_grid import SORTED_MODES, SortedGrid, sort_particles
 
 
 def _newton(h, rho, omega, m, eta):
@@ -117,16 +117,17 @@ def update_smoothing(p: Particles, cfg: SimConfig, cols=None, grid=None,
     (worklist, count) and `act_mask` restrict the iteration to a
     block-timestep substep's active rows; without a grid the standalone
     sorted path.  Returns (particles, n_unconverged int32).
-    The sharded (`cols`, `key_rows`, `axis_name`) and the grid and dense
-    engines are not ported and raise NotImplementedError."""
+    'grid' runs on the sorted engine, as in `integrate`.  The sharded
+    (`cols`, `key_rows`, `axis_name`) and the dense engine are not ported
+    and raise NotImplementedError."""
     if cols is not None or key_rows is not None or axis_name is not None:
         raise NotImplementedError(
             "update_smoothing: multi-device runs (cols/key_rows/axis_name) "
             "are not ported to summersph_tpu_torch yet")
-    if cfg.neighbor_mode != "sorted":
+    if cfg.neighbor_mode not in SORTED_MODES:
         raise NotImplementedError(
             f"update_smoothing: neighbor_mode={cfg.neighbor_mode!r} is not "
-            f"ported (only 'sorted')")
+            f"ported (only 'sorted' and 'grid')")
     if grid is not None:
         return _update_smoothing_shared(p, cfg, grid, active, act_mask)
     if active is not None or act_mask is not None:

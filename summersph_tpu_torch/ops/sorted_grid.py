@@ -44,6 +44,10 @@ PLANE_OFFSETS = [dx * KX + dy * KY
 
 LANES = 128  # the padding granule (with cfg.sorted_block)
 
+# cfg.neighbor_mode values this engine runs: 'grid' (the JAX package's
+# hashed grid, a workaround for TPU gathers) sums the same pairs
+SORTED_MODES = ("sorted", "grid")
+
 
 @functools.cache
 def _plane_offsets(device: torch.device) -> torch.Tensor:
@@ -206,4 +210,4 @@ def group_worklist(act: torch.Tensor, block: int):
 
 __all__ = ["SortedGrid", "sort_particles", "group_windows",
            "group_worklist", "PLANE_OFFSETS",
-           "SENTINEL_KEY", "WINDOW", "WINDOW_BITS", "LANES"]
+           "SENTINEL_KEY", "WINDOW", "WINDOW_BITS", "LANES", "SORTED_MODES"]

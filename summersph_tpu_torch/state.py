@@ -242,5 +242,12 @@ def from_numpy(d: dict, device="cuda") -> SimState:
                     pm_r_s=None if pm_r_s is None else t(pm_r_s))
 
 
+def compact(particles: Particles) -> Particles:
+    """Move the live particles to the front, keeping their order (a stable
+    sort on ~alive).  Optional: the engine is right without it."""
+    order = torch.argsort(~particles.alive, stable=True)
+    return particles.map(lambda a: a[order])
+
+
 __all__ = ["Particles", "Sinks", "SimState", "PARK_POSITION", "STATS_FIELDS",
-           "to_numpy", "from_numpy"]
+           "to_numpy", "from_numpy", "compact"]

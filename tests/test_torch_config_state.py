@@ -92,7 +92,9 @@ def test_numpy_round_trip_of_a_jax_state_is_exact(carries):
 def test_import_leaves_jax_out():
     code = ("import sys; before = set(sys.modules);"
             " import summersph_tpu_torch, summersph_tpu_torch.integrate,"
-            " summersph_tpu_torch.diagnostics, summersph_tpu_torch.models;"
+            " summersph_tpu_torch.diagnostics, summersph_tpu_torch.models,"
+            " summersph_tpu_torch.io, summersph_tpu_torch.tools,"
+            " summersph_tpu_torch.cli, summersph_tpu_torch.models.sod;"
             " bad = [m for m in set(sys.modules) - before"
             " if m.split('.')[0] in ('jax', 'flax', 'summersph_tpu')];"
             " print(bad); sys.exit(1 if bad else 0)")

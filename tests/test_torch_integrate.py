@@ -117,14 +117,15 @@ def test_health_and_diagnostics_after_ten_steps(runs):
 
 @pytest.mark.parametrize("change", [
     dict(fixed_h=None, dt_bins=2, neighbor_mode="dense"),
-    dict(fixed_h=None, neighbor_mode="grid"),
-    dict(dt_bins=2, neighbor_mode="grid"),
+    dict(fixed_h=None, neighbor_mode="dense"),
+    dict(dt_bins=2, neighbor_mode="dense"),
     dict(gravity="pm", dt_bins=2, neighbor_mode="dense"),
-    dict(gravity="pm", neighbor_mode="dense"), dict(neighbor_mode="grid"),
+    dict(gravity="pm", neighbor_mode="dense"), dict(neighbor_mode="dense"),
     dict(sink_merge_factor=1.0, neighbor_mode="dense")])
 def test_unported_configurations_raise(change):
-    """The grid and dense engines are not ported, with block timesteps
-    (dt_bins > 1, which the sorted engine runs) as without."""
+    """The dense engine is not ported, with block timesteps (dt_bins > 1,
+    which the sorted engine runs) as without.  ('grid' runs on the sorted
+    engine: tests/test_torch_driver.py.)"""
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     st = _ic(disc_ic, cfg)
     with pytest.raises(NotImplementedError):

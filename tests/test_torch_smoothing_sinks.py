@@ -112,9 +112,12 @@ def test_update_smoothing_refuses_unported_paths():
     for kw in (dict(cols=p), dict(axis_name="dp"), dict(key_rows=p.pid)):
         with pytest.raises(NotImplementedError):
             smoothing.update_smoothing(p, cfg, **kw)
-    for mode in ("grid", "dense"):
-        with pytest.raises(NotImplementedError):
-            smoothing.update_smoothing(p, cfg.with_(neighbor_mode=mode))
+    with pytest.raises(NotImplementedError):
+        smoothing.update_smoothing(p, cfg.with_(neighbor_mode="dense"))
+    # 'grid' runs on the sorted engine: the same h, bit for bit
+    out, n = smoothing.update_smoothing(p, cfg.with_(neighbor_mode="grid"))
+    ref, n_ref = smoothing.update_smoothing(p, cfg)
+    assert torch.equal(out.h, ref.h) and int(n) == int(n_ref)
 
 
 def test_newton_safeguard_rim_omega():
