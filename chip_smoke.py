@@ -123,10 +123,38 @@ caught:
    It prints the seconds of every file read and write, the steps,
    particle-steps/s with the file I/O taken out, and the seconds of the
    image;
+19. multi-device runs in gather mode and the dense engine (run before
+   the results of phase 18):
+   a. the row slabs at full size: on the end states of phases 5 (the
+      disc) and 11 (config 5) and on the gravity sort of phase 7's, each
+      of density_fixed_h, density_var_h, force_fixed_h, force_var_h and
+      grav_short in its row-slab form (`_rows`) as 4 slabs of 262,144
+      rows: laid end to end equal to the whole launch bit for bit, held
+      against the plain version's slabs (cancelling sums in float64), the
+      4 slabs' summed time beside the whole launch's;
+   b. gather mode on the card at D = 1 over NCCL (a process group from a
+      HashStore, `make_mesh`, `shard_state`, `make_sharded_prime`,
+      `make_sharded_run_steps`, `gather_state`; destroyed after): the
+      disc with fixed h (4 + 4 steps: 9 launches of density_fixed_h_rows
+      and force_fixed_h_rows) and config 5 (20 + 20 steps: 121
+      density_var_h_rows, 41 force_var_h_rows and 41 grav_short_rows
+      launches, 11 mesh solves), no whole-set launch of any pair kernel,
+      the health checks of phases 5 and 11, and each run held per pid
+      against the single-device run from the same state at
+      tests/test_sharding.py's tolerances (printed: whether bit for bit),
+      with both runs' ms per step;
+   c. the dense O(N^2) oracle at N = 16,384: the sorted density and force
+      kernels against `compute_density` / `compute_sph_forces` on the
+      disc (fixed h) and on config 5's sphere after one h-iteration
+      (variable h; Omega and the forces against the dense pass in
+      float64), then one `neighbor_mode='dense'` step of the disc against
+      the sorted step, per pid; the dense passes' times;
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
-   the rows and pairs of the listed groups only) and, last,
+   the rows and pairs of the listed groups only; for a row-slab form on
+   all the rows of its path, its whole form's on the same state; its
+   launches from phase 19b, its times from 19a) and, last,
    {"ok": true, "device": ...}.
 
 For the pair kernels, which test every candidate of a row's windows and
@@ -183,6 +211,17 @@ KERNELS.update({
                        ("force_fixed_h_grav", 606), ("grav_short", 881),
                        ("density_var_h", 366), ("force_var_h", 606),
                        ("force_var_h_grav", 606))})
+# the row-slab forms (gather mode, `_row_slices` with rows=(p_rows, offset)
+# :533-542, and the sharded gravity split, pm_gravity.py:678-685) move the
+# same bytes per row
+KERNELS.update({
+    name + "_rows": (replaces, KERNELS[name][1])
+    for name, replaces in (
+        ("density_fixed_h", "summersph_tpu/ops/pallas_pairs.py:533"),
+        ("density_var_h", "summersph_tpu/ops/pallas_pairs.py:533"),
+        ("force_fixed_h", "summersph_tpu/ops/pallas_pairs.py:533"),
+        ("force_var_h", "summersph_tpu/ops/pallas_pairs.py:533"),
+        ("grav_short", "summersph_tpu/ops/pm_gravity.py:678"))})
 # the force kernels' per-particle records (the TPU pack `_pack`), formed by
 # one kernel before every force launch; bytes with variable h
 KERNELS["pack_force"] = ("summersph_tpu/ops/pallas_pairs.py:94", 57 + 84)
@@ -196,12 +235,13 @@ def require(cond, msg):
 
 def kernel_name(wrapper, attr):
     """The CUDA entry point a launch count of `cuda_pairs` belongs to."""
-    gated = "_gated" if "gated_" in attr else ""
+    form = ("_gated" if "gated_" in attr else "") + (
+        "_rows" if "rows_" in attr else "")
     if wrapper.__name__ == "grav_short_sums":
-        return "grav_short" + gated
+        return "grav_short" + form
     base = "density" if wrapper.__name__ == "density_sums" else "force"
     return (base + ("_var_h" if attr.startswith("var_") else "_fixed_h")
-            + ("_grav" if "fused_" in attr else "") + gated)
+            + ("_grav" if "fused_" in attr else "") + form)
 
 
 def launch_counts():
@@ -676,20 +716,20 @@ def pm_vs_direct(state, label):
               f"{float(torch.median(rel)):.4e}", flush=True)
 
 
-def time_main_path(state, cfg):
-    """prime, run_steps(STEPS) warm-up, run_steps(STEPS) timed.  Returns
+def time_main_path(state, cfg, steps=STEPS):
+    """prime, run_steps(steps) warm-up, run_steps(steps) timed.  Returns
     (warm-up state, final state, particle-steps/s, s/step)."""
     import torch
     from summersph_tpu_torch.integrate import prime, run_steps
 
-    warm = run_steps(prime(state, cfg), cfg, STEPS)
+    warm = run_steps(prime(state, cfg), cfg, steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = run_steps(warm, cfg, STEPS)
+    out = run_steps(warm, cfg, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rate = int(out.particles.n_alive) * STEPS / wall
-    return warm, out, rate, wall / STEPS
+    rate = int(out.particles.n_alive) * steps / wall
+    return warm, out, rate, wall / steps
 
 
 def check_run(state, warm, out, label):
@@ -1626,8 +1666,8 @@ def io_timed(log, run):
         return call
 
     def counted(fn):
-        def call(state, cfg, n_steps):
-            out = fn(state, cfg, n_steps)
+        def call(state, cfg, n_steps, axis_name=None):
+            out = fn(state, cfg, n_steps, axis_name)
             run["steps"] += n_steps
             run["stats"] = torch.maximum(run.get("stats", out.stats),
                                          out.stats)
@@ -1880,6 +1920,330 @@ def cli_path(dev, n, t_end):
     return results
 
 
+# ------------------------------------------------- phase 19: gather mode
+
+SLABS = 4              # phase 19a: row slabs of each whole launch
+DENSE_N = 16384        # phase 19c: the dense oracle's particles
+# tests/test_sharding.py's tolerances for a sharded run against one device
+SHARD_TOL = {"pos": (2e-5, 1e-6), "vel": (2e-4, 1e-5), "rho": (1e-4, 0.0),
+             "h": (1e-4, 0.0)}
+
+
+def slab_kernel(name, n, whole, slab, plain, label, exact=None, first=None,
+                **tol):
+    """Phase 19a for one row-slab kernel.  `whole()` launches the whole
+    set, `slab(off, n_rows)` the row-slab form, `plain(off, n_rows)` its
+    plain version and `exact(off, n_rows)` the plain version in float64 of
+    the outputs from `first` on (sums that cancel, `hold_exact`).  The
+    SLABS slabs laid end to end must equal the whole launch bit for bit,
+    and they are held against their plain versions laid end to end.
+    Prints the slabs' summed time beside the whole launch's.  Returns
+    (max_abs_err, ms of the row-slab form on all n rows, the plain
+    version's ms on the same rows: its slabs' times summed)."""
+    import torch
+
+    nl = n // SLABS
+    ref = flat(whole())
+    parts = [flat(slab(k * nl, nl)) for k in range(SLABS)]
+    torch.cuda.synchronize()
+    got = [torch.cat([p[c] for p in parts]) for c in range(len(ref))]
+    for c, (a, b) in enumerate(zip(ref, got)):
+        require(torch.equal(a, b), f"{name} output {c}: {SLABS} slabs "
+                f"differ from the whole launch ({label})")
+    print(f"[{label}] {name}: {SLABS} slabs of {nl} rows laid end to end "
+          f"equal the whole launch bit for bit", flush=True)
+    plain_ms, pl, ex = 0.0, [], []
+    for k in range(SLABS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pl.append(flat(plain(k * nl, nl)))
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(stop)
+        if exact is not None:
+            ex.append(flat(exact(k * nl, nl)))
+    pl = [torch.cat([p[c] for p in pl]) for c in range(len(ref))]
+    first = len(ref) if exact is None else first
+    err = hold(name, got[:first], pl[:first], label, **tol) if first else 0.0
+    if exact is not None:
+        ex = [torch.cat([q[c] for q in ex]) for c in range(len(ex[0]))]
+        err = max(err, hold_exact(name, got[first:], pl[first:], ex, label,
+                                  first=first))
+    whole_ms = cuda_ms(whole, 10)
+    slab_ms = [cuda_ms(lambda k=k: slab(k * nl, nl), 10)
+               for k in range(SLABS)]
+    rows_ms = cuda_ms(lambda: slab(0, n), 10)
+    print(f"[{label}] {name}: {SLABS} slabs {sum(slab_ms):.4f} ms ("
+          + ", ".join(f"{t:.4f}" for t in slab_ms) + f") against the whole "
+          f"launch {whole_ms:.4f} ms ({sum(slab_ms) / whole_ms:.4f}x); the "
+          f"row-slab form on all {n} rows {rows_ms:.4f} ms; plain "
+          f"{plain_ms:.1f} ms; max_abs_err={err:.3e}", flush=True)
+    return err, rows_ms, plain_ms
+
+
+def row_slab_phase(disc_sorted, c5_sorted, grav_state, results, label):
+    """Phase 19a: the five row-slab kernels at full size, on the sorted end
+    states of phases 5 (the disc, fixed h) and 11 (config 5, variable h)
+    and on the gravity sort of phase 7's end state.  Each as SLABS slabs
+    (`slab_kernel`); the bound of the row-slab form on all n rows is its
+    whole form's on the same state (`results`: the same rows, pairs and
+    bytes).  Returns {name: (err, ms, plain_ms, bound_ms, bound_by)}."""
+    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+
+    def rows(p, off, nl):
+        return (p.map(lambda a: a[off:off + nl]), off)
+
+    out = {}
+    p2, grid, cfg = disc_sorted
+    pd = cuda_pairs.pair_eval(p2, cfg, grid)[0]
+    n = p2.capacity
+    out["density_fixed_h_rows"] = slab_kernel(
+        "density_fixed_h_rows", n,
+        lambda: cuda_pairs.density_sums(p2, cfg, grid)[0],
+        lambda o, k: cuda_pairs.density_sums(p2, cfg, grid,
+                                             rows=rows(p2, o, k))[0],
+        lambda o, k: cuda_pairs.density_sums_plain(p2, cfg, grid,
+                                                   rows=rows(p2, o, k))[0],
+        f"{label} disc", rtol=RHO_RTOL, atol_rel=0.0)
+    out["force_fixed_h_rows"] = slab_kernel(
+        "force_fixed_h_rows", n,
+        lambda: cuda_pairs.force_sums(pd, cfg, grid),
+        lambda o, k: cuda_pairs.force_sums(pd, cfg, grid,
+                                           rows=rows(pd, o, k)),
+        lambda o, k: cuda_pairs.force_sums_plain(pd, cfg, grid,
+                                                 rows=rows(pd, o, k)),
+        f"{label} disc")
+
+    p2, grid, cfg = c5_sorted
+    pd = cuda_pairs.pair_eval(p2, cfg, grid)[0]
+    p64, pd64 = f64(p2), f64(pd)
+    n = p2.capacity
+    out["density_var_h_rows"] = slab_kernel(
+        "density_var_h_rows", n,
+        lambda: cuda_pairs.density_sums(p2, cfg, grid),
+        lambda o, k: cuda_pairs.density_sums(p2, cfg, grid,
+                                             rows=rows(p2, o, k)),
+        lambda o, k: cuda_pairs.density_sums_plain(p2, cfg, grid,
+                                                   rows=rows(p2, o, k)),
+        f"{label} config 5",
+        exact=lambda o, k: cuda_pairs.density_sums_plain(
+            p64, cfg, grid, rows=rows(p64, o, k))[1], first=1,
+        rtol=RHO_RTOL, atol_rel=0.0)
+    out["force_var_h_rows"] = slab_kernel(
+        "force_var_h_rows", n,
+        lambda: cuda_pairs.force_sums(pd, cfg, grid),
+        lambda o, k: cuda_pairs.force_sums(pd, cfg, grid,
+                                           rows=rows(pd, o, k)),
+        lambda o, k: cuda_pairs.force_sums_plain(pd, cfg, grid,
+                                                 rows=rows(pd, o, k)),
+        f"{label} config 5",
+        exact=lambda o, k: cuda_pairs.force_sums_plain(
+            pd64, cfg, grid, rows=rows(pd64, o, k)), first=0)
+
+    p, cfg = grav_state
+    r_s = pm_gravity.pm_geometry(p, cfg)[2]
+    pos, m, h, ggrid, _, split = pm_gravity.gravity_sort(p, cfg, r_s)
+    ex = (pos.double(), m.double(), h.double(), ggrid, cfg,
+          tuple(v.double() for v in split))
+    out["grav_short_rows"] = slab_kernel(
+        "grav_short_rows", pos.shape[0],
+        lambda: cuda_pairs.grav_short_sums(pos, m, h, ggrid, cfg, split),
+        lambda o, k: cuda_pairs.grav_short_sums(pos, m, h, ggrid, cfg, split,
+                                                rows=(o, k)),
+        lambda o, k: cuda_pairs.grav_short_sums_plain(pos, m, h, ggrid, cfg,
+                                                      split, rows=(o, k)),
+        f"{label} pm separate grid 128",
+        exact=lambda o, k: cuda_pairs.grav_short_sums_plain(*ex,
+                                                            rows=(o, k)),
+        first=0)
+    return {name: res + tuple(results[name[:-len("_rows")]][3:5])
+            for name, res in out.items()}
+
+
+def by_pid(state):
+    """A gathered or single-device state's particles in pid order."""
+    import torch
+
+    order = torch.argsort(state.particles.pid)
+    return state.particles.map(lambda a: a[order])
+
+
+def hold_sharded(ours, ref, label, against="one device"):
+    """A sharded run against the single-device run from the same state
+    (or another engine's run, `against`), per pid, at
+    tests/test_sharding.py's tolerances (pos, vel, rho and h of the live
+    particles; the alive masks equal; the sinks' mass rtol 1e-5; dt rtol
+    1e-6, and t, its sum over the run's steps, too).  Prints whether every
+    field is equal bit for bit."""
+    import torch
+
+    a, b = by_pid(ours), by_pid(ref)
+    require(torch.equal(a.pid, b.pid) and torch.equal(a.alive, b.alive),
+            f"{label}: pids or alive masks differ")
+    live = b.alive
+    for name, (rtol, atol) in SHARD_TOL.items():
+        torch.testing.assert_close(getattr(a, name)[live],
+                                   getattr(b, name)[live], rtol=rtol,
+                                   atol=atol, msg=f"{label}: {name}")
+    torch.testing.assert_close(ours.sinks.mass, ref.sinks.mass, rtol=1e-5,
+                               atol=0.0, msg=f"{label}: sink mass")
+    for name in ("t", "dt"):
+        torch.testing.assert_close(getattr(ours, name), getattr(ref, name),
+                                   rtol=1e-6, atol=0.0,
+                                   msg=f"{label}: {name}")
+    fields = ("pos", "vel", "u", "rho", "h", "acc")
+    same = [f for f in fields if torch.equal(getattr(a, f), getattr(b, f))]
+    bitwise = (len(same) == len(fields) and torch.equal(ours.t, ref.t)
+               and torch.equal(ours.sinks.mass, ref.sinks.mass))
+    print(f"[{label}] against {against}, per pid: within tests/"
+          f"test_sharding.py's tolerances; bit for bit: {bitwise} (equal: "
+          f"{', '.join(same) or 'none'} of {', '.join(fields)})", flush=True)
+
+
+def sharded_path(state, cfg, mesh, steps, expect, label, check):
+    """One gather-mode path on `mesh`: pad and shard `state`, reset the
+    counts, make_sharded_prime, make_sharded_run_steps(steps) to warm up
+    and again timed, read the counts and check them against `expect`;
+    `check` (health) on the gathered states; then the single-device
+    prime + run_steps from the same state, timed alike, and the two held
+    per pid (`hold_sharded`).  Returns the launch counts."""
+    import torch
+    from summersph_tpu_torch.integrate import init_carries
+    from summersph_tpu_torch.parallel import (gather_state,
+                                              make_sharded_prime,
+                                              make_sharded_run_steps,
+                                              pad_state_to_devices,
+                                              shard_state)
+
+    st = shard_state(pad_state_to_devices(init_carries(state, cfg),
+                                          mesh.size), mesh)
+    run = make_sharded_run_steps(cfg, mesh, n_steps=steps)
+    reset_counts()
+    warm = run(make_sharded_prime(cfg, mesh)(st))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(warm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    warm, out = gather_state(warm, mesh), gather_state(out, mesh)
+    print(f"[{label}] gather mode on {mesh.size} rank(s), NCCL: "
+          f"{wall / steps * 1e3:.3f} ms/step ({steps} steps timed) launches "
+          f"{nonzero(launches)}", flush=True)
+    for name, count in expect.items():
+        require(launches[name] == count,
+                f"{label}: {name} counted {launches[name]}, expected {count}")
+    require_packs(launches, label)
+    check(state, warm, out, label)
+    _, ref, _, ref_s = time_main_path(state, cfg, steps)
+    print(f"[{label}] one device, the same steps: {ref_s * 1e3:.3f} ms/step; "
+          f"gather mode / one device {wall / steps / ref_s:.4f}x",
+          flush=True)
+    hold_sharded(out, ref, label)
+    return launches
+
+
+def sharded_phase(n, dev, steps_disc=4):
+    """Phase 19b: gather mode on the card, D = 1 over NCCL (one H100; NCCL
+    puts no two ranks of one communicator on one card): the process group
+    from a HashStore, `make_mesh`, then the disc (fixed h, gravity none,
+    `steps_disc` + `steps_disc` steps) and config 5 (STEPS + STEPS) at N =
+    n through `sharded_path`; the group is destroyed after.  Returns
+    (disc launches, config 5 launches)."""
+    import torch.distributed as dist
+    from summersph_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1)
+        whole = {name: 0 for name in KERNELS if not name.endswith("_rows")
+                 and name != "pack_force"}
+        disc_l = sharded_path(
+            *disc(n, dev), mesh, steps_disc,
+            {**whole, "density_fixed_h_rows": 1 + 2 * steps_disc,
+             "force_fixed_h_rows": 1 + 2 * steps_disc},
+            f"N={n} gather mode disc", check_run)
+        c5_l = sharded_path(
+            *config5(n, dev), mesh, STEPS,
+            {**whole, "density_var_h_rows": 1 + 3 * 2 * STEPS,
+             "force_var_h_rows": 1 + 2 * STEPS,
+             "grav_short_rows": 1 + 2 * STEPS,
+             "mesh solves": 1 + 2 * len(range(0, STEPS, 4))},
+            f"N={n} gather mode config 5", check_collapse)
+    finally:
+        dist.destroy_process_group()
+    return disc_l, c5_l
+
+
+def dense_phase(dev, n=DENSE_N):
+    """Phase 19c: the dense O(N^2) oracle on the card.  On the disc (fixed
+    h) and on config 5's collapse sphere after one h-iteration (variable
+    h, the sort's cell at 2 h_max so that its windows hold every pair), both
+    at N = n: the sorted kernels (`density_*`, `force_*` through
+    `cuda_pairs.density` / `forces`) against `compute_density` /
+    `compute_sph_forces` on the same sorted rows, rho within RHO_RTOL,
+    with variable h Omega and the forces against the dense pass in float64
+    (`hold_exact`); then one `neighbor_mode='dense'` step of the disc
+    against the sorted step, per pid.  Prints the dense passes' times."""
+    import torch
+    from summersph_tpu_torch.integrate import prime, step
+    from summersph_tpu_torch.ops import cuda_pairs
+    from summersph_tpu_torch.ops.density import compute_density
+    from summersph_tpu_torch.ops.eos import eos_update
+    from summersph_tpu_torch.ops.forces import compute_sph_forces
+    from summersph_tpu_torch.ops.smoothing import update_smoothing
+    from summersph_tpu_torch.ops.sorted_grid import sort_particles
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(stop)
+
+    for what in ("disc", "collapse"):
+        label = f"N={n} dense oracle {what}"
+        if what == "disc":
+            state, cfg = disc(n, dev)
+            p2, grid = sort_particles(state.particles, cfg)
+        else:
+            state, cfg = config5(n, dev, cell_h_quantile=1.0)
+            p, _ = update_smoothing(state.particles, cfg)
+            p2, grid = sort_particles(p, cfg, h_pad=cfg.sort_h_pad)
+        require(int(grid.n_clamped) == 0, f"{label}: {int(grid.n_clamped)} "
+                f"rows reach past the sort's cell")
+        kd = eos_update(cuda_pairs.density(p2, cfg, grid), cfg)
+        dd, d_ms = timed(lambda: eos_update(compute_density(p2, cfg), cfg))
+        kf = cuda_pairs.forces(kd, cfg, grid)
+        df, f_ms = timed(lambda: compute_sph_forces(kd, cfg))
+        hold("density", [kd.rho], [dd.rho], label, rtol=RHO_RTOL,
+             atol_rel=0.0)
+        if what == "disc":
+            hold("force", list(kf), list(df), label)
+        else:
+            d64 = compute_density(f64(p2), cfg)
+            hold_exact("density (Omega)", [kd.omega], [dd.omega],
+                       [d64.omega], label)
+            hold_exact("force", list(kf), list(df),
+                       list(compute_sph_forces(f64(kd), cfg)), label)
+        print(f"[{label}] dense density pass {d_ms:.3f} ms, dense force pass "
+              f"{f_ms:.3f} ms ({n} x {n} pairs)", flush=True)
+    state, cfg = disc(n, dev)
+    dcfg = cfg.with_(neighbor_mode="dense")
+    ref = step(prime(state, cfg), cfg)
+    primed, p_ms = timed(lambda: prime(state, dcfg))
+    out, s_ms = timed(lambda: step(primed, dcfg))
+    label = f"N={n} dense step"
+    require(not any(out.stats.tolist()), f"{label}: stats {out.stats_dict()}")
+    hold_sharded(out, ref, label, against="the sorted step")
+    print(f"[{label}] dense prime {p_ms:.3f} ms, dense step {s_ms:.3f} ms",
+          flush=True)
+
+
 def main():
     import torch
 
@@ -1968,6 +2332,7 @@ def main():
     print(f"[{label}] candidates per row: mean {float(ext.float().mean()):.1f}"
           f" max {int(ext.max())}", flush=True)
     results = sph_kernels(p2, grid, cfg, label)
+    slab_disc = (p2, grid, cfg)   # phase 19a's fixed-h state
     t_disc = float(out.t)  # the disc's t after 2 x STEPS steps from the ICs
     phase_done("5 (N=1048576, gravity none)")
 
@@ -1991,6 +2356,7 @@ def main():
         f"{label} pm separate grid 128", check_run)
     results["grav_short"] = grav_kernel(out.particles, cfg,
                                         f"{label} pm separate grid 128")
+    slab_grav = (out.particles, cfg)   # phase 19a's gravity state
     phase_done("7 (N=1048576, separate TreePM)")
 
     # -- phase 8: the variable-h kernels at N = 131,072 on config 5's ICs
@@ -2042,6 +2408,7 @@ def main():
           f" max {int(ext.max())}; SPH cell {float(grid.cell_size):.4f}",
           flush=True)
     results.update(sph_kernels(p2, grid, cfg, label))
+    slab_c5 = (p2, grid, cfg)   # phase 19a's variable-h state
     from summersph_tpu_torch.ops import cuda_pairs
     results["pack_force"] = pack_kernel(
         cuda_pairs.pair_eval(p2, cfg, grid)[0], grid.key, True, label)
@@ -2134,6 +2501,16 @@ def main():
     cli_path(dev, n, t_disc)
     phase_done("17 (N=1048576, the CLI)")
 
+    # -- phase 19: gather mode and the dense engine
+    results.update(row_slab_phase(slab_disc, slab_c5, slab_grav, results,
+                                  f"N={n} row slabs"))
+    del slab_disc, slab_c5, slab_grav
+    phase_done("19a (N=1048576, row slabs)")
+    disc_rows_launches, c5_rows_launches = sharded_phase(n, dev)
+    phase_done("19b (N=1048576, gather mode)")
+    dense_phase(dev)
+    phase_done("19c (the dense oracle)")
+
     # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],
                 "pack_force": c5_launches["pack_force"],
@@ -2150,7 +2527,12 @@ def main():
             ("grav_short_gated", c5_b_launches),
             ("density_var_h_gated", c5_b_launches),
             ("force_var_h_gated", c5_b_launches),
-            ("force_var_h_grav_gated", var_fused_b_launches)):
+            ("force_var_h_grav_gated", var_fused_b_launches),
+            ("density_fixed_h_rows", disc_rows_launches),
+            ("force_fixed_h_rows", disc_rows_launches),
+            ("density_var_h_rows", c5_rows_launches),
+            ("force_var_h_rows", c5_rows_launches),
+            ("grav_short_rows", c5_rows_launches)):
         launches[name] = counted[name]
         require(counted[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [

@@ -45,7 +45,7 @@ from .ops.pm_gravity import (PM_MODES, pm_geometry, pm_long_range_held,
                              pm_short_range, recompute_far_field)
 from .ops.sinks import accrete, create_sinks, cull_bounds, merge_sinks
 from .ops.smoothing import update_smoothing
-from .ops.sorted_grid import group_worklist, sort_particles
+from .ops.sorted_grid import group_worklist, sort_h_pad, sort_particles
 from .ops.timestep import dt_candidates, next_timestep
 from .state import Particles, SimState, Sinks
 
@@ -160,7 +160,7 @@ def _step_binned(state: SimState, cfg: SimConfig, pm_phase: Optional[int],
     rung = assign_rungs(p, cfg, dt_base)
     pm_on = cfg.gravity in PM_MODES
     fuse = cfg.grav_fuse_short and pm_on
-    h_pad = 1.0 if cfg.fixed_h is not None else cfg.sort_h_pad
+    h_pad = sort_h_pad(cfg)
     r_s_held = (state.pm_r_s if state.pm_r_s is not None
                 else torch.zeros((), dtype=dtype, device=dev))
     zero = torch.zeros((), dtype=torch.int32, device=dev)

@@ -17,9 +17,26 @@
 //   <name>_gated        <- each of the seven in its gated form (_gate_plan,
 //                          block timesteps): only the window groups on a
 //                          worklist are computed
+//   <name>_rows         <- density_fixed_h, density_var_h, force_fixed_h,
+//                          force_var_h and grav_short in their row-slab form
+//                          (_row_slices with rows=(p_rows, offset), the
+//                          multi-device gather mode): the sums of a slice
+//                          of the window groups against every column
 //   pack_force          <- _pack (the force kernels' per-particle records)
 // The variable-h forms are template instantiations of the fixed-h kernels
 // (VARH), the gated forms of the ungated ones (GATED).
+//
+// Rows and columns: every kernel reads its rows (the group's own records,
+// geo_rows, and for the force attr_rows; h, and for the force P and Omega,
+// are read for the rows only) through pointers apart from its columns (geo,
+// m, attr, sup2, indexed by the windows).  A whole-set launch passes the
+// same records for both.  The `_rows` entry points launch the same
+// instantiations as the ungated ones on a slice of the window groups: the
+// caller passes the slice's row pointers (the columns' records from the
+// slice's first row on), the windows of its groups (starts + g0 * 9) and
+// its row count, and gets that many rows of output.  A row's bits depend
+// only on its group's ranges and the columns, so the slabs of a launch,
+// laid end to end, equal the whole launch bit for bit.
 //
 // Gating: the caller passes worklist [groups] (ids of the window groups
 // that hold an active row, compacted to the front) and count [1], both on
@@ -391,14 +408,16 @@ __device__ __forceinline__ void density_test(
 // 0 < r_ij < 2 h_i (the self term is added by pairs.finalize_density).
 // VARH also writes omega_raw[i] = sum_j m_j dW/dh(r_ij, h_i), whose shape
 // is -(3 w(q) + q w'(q)) / (pi h_i^4) (pallas_pairs.py _density_body).
-// geo holds (x, y, z, key bits); m is the masked mass, staged beside the
-// candidates as grav_short_kernel stages it.  A row's raw sums stay in
+// geo holds the columns' (x, y, z, key bits), geo_rows and h the rows';
+// m is the masked mass, staged beside the candidates as grav_short_kernel
+// stages it.  A row's raw sums stay in
 // shared memory (s_rho, s_om) until its last chunk; each row is written
 // once, scaled, by one thread.
 template <bool VARH, bool GATED>
 __global__ void __launch_bounds__(NT, 5) density_kernel(
     const float4* __restrict__ geo, const float* __restrict__ m,
-    const float* __restrict__ h, const int* __restrict__ starts,
+    const float4* __restrict__ geo_rows, const float* __restrict__ h,
+    const int* __restrict__ starts,
     const int* __restrict__ ends, float* __restrict__ rho_raw,
     float* __restrict__ omega_raw, int wg, const int* __restrict__ worklist,
     const int* __restrict__ count) {
@@ -418,7 +437,7 @@ __global__ void __launch_bounds__(NT, 5) density_kernel(
   load_ranges(starts, ends, g, s_s, s_e);
   if ((int)threadIdx.x < wg) {
     const float hi = h[g * wg + threadIdx.x];
-    s_rgeo[threadIdx.x] = geo[g * wg + threadIdx.x];
+    s_rgeo[threadIdx.x] = geo_rows[g * wg + threadIdx.x];
     s_rinv_h[threadIdx.x] = 1.0f / hi;
     s_rsup[threadIdx.x] = 4.0f * hi * hi;
   }
@@ -644,11 +663,14 @@ struct ForceRow {
 // Pallas fuse_grav form), from a second mask of the same test; they equal
 // the Pallas sums even on a step whose r_cut exceeds the SPH cell (a step
 // integrate.py reports in the grav_window_overflow slot).  Without FUSE
-// the split and gravity outputs are unused.
+// the split and gravity outputs are unused.  The rows' records are
+// geo_rows and attr_rows (with h, pres, omega), the columns' geo, attr and
+// sup2.
 template <bool VARH, bool FUSE, bool GATED>
 __global__ void __launch_bounds__(NT) force_kernel(
     const float4* __restrict__ geo, const float4* __restrict__ attr,
-    const float* __restrict__ sup2, const float* __restrict__ h,
+    const float* __restrict__ sup2, const float4* __restrict__ geo_rows,
+    const float4* __restrict__ attr_rows, const float* __restrict__ h,
     const float* __restrict__ pres, const float* __restrict__ omega,
     const int* __restrict__ starts, const int* __restrict__ ends,
     float* __restrict__ out_ax, float* __restrict__ out_ay,
@@ -674,9 +696,9 @@ __global__ void __launch_bounds__(NT) force_kernel(
     // the group's rows; a row's own pressure term carries no guard
     // (pterm_j does)
     const int i = g * wg + threadIdx.x;
-    const float4 v = attr[(VARH ? ATTR_VAR : ATTR_FIXED) * i];
-    const float4 t = attr[(VARH ? ATTR_VAR : ATTR_FIXED) * i + 1];
-    s_rgeo[threadIdx.x] = geo[i];
+    const float4 v = attr_rows[(VARH ? ATTR_VAR : ATTR_FIXED) * i];
+    const float4 t = attr_rows[(VARH ? ATTR_VAR : ATTR_FIXED) * i + 1];
+    s_rgeo[threadIdx.x] = geo_rows[i];
     s_rvr[threadIdx.x] = make_float4(v.x, v.y, v.z, t.y);
     s_rt[threadIdx.x] = make_float4(pres[i] / (omega[i] * t.y * t.y), t.z,
                                     t.w, h[i]);
@@ -794,12 +816,14 @@ __global__ void __launch_bounds__(NT) force_kernel(
 // (gx, gy, gz)[i] = sum_j -G m_j [f(r_ij / h_i) - S(r_ij)] r_ij / r_ij^3
 // over 0 < r_ij < r_cut: the TreePM short-range complement, on the
 // gravity sort (cells r_cut wide, ops/pm_gravity.py pm_short_range).  geo
-// holds (x, y, z, key bits); m is the masked mass, staged beside the
-// candidates, so the pair arithmetic reads shared memory only.
+// holds the columns' (x, y, z, key bits), geo_rows and h the rows'; m is
+// the masked mass, staged beside the candidates, so the pair arithmetic
+// reads shared memory only.
 template <bool GATED>
 __global__ void __launch_bounds__(NT) grav_short_kernel(
     const float4* __restrict__ geo, const float* __restrict__ m,
-    const float* __restrict__ h, const int* __restrict__ starts,
+    const float4* __restrict__ geo_rows, const float* __restrict__ h,
+    const int* __restrict__ starts,
     const int* __restrict__ ends, const float* __restrict__ split,
     float* __restrict__ out_gx, float* __restrict__ out_gy,
     float* __restrict__ out_gz, int wg, const int* __restrict__ worklist,
@@ -818,7 +842,7 @@ __global__ void __launch_bounds__(NT) grav_short_kernel(
   }
   load_ranges(starts, ends, g, s_s, s_e);
   if ((int)threadIdx.x < wg) {
-    s_rgeo[threadIdx.x] = geo[g * wg + threadIdx.x];
+    s_rgeo[threadIdx.x] = geo_rows[g * wg + threadIdx.x];
     s_rinv_h[threadIdx.x] = 1.0f / h[g * wg + threadIdx.x];
   }
   __syncthreads();
@@ -898,57 +922,71 @@ __global__ void __launch_bounds__(NT) grav_short_kernel(
   } while (lo < total);
 }
 
-// The launchers: a block of NT threads per window group, whatever wg is,
-// gated or not (GATED launches the same grid; see the note on gating at
-// the top).
+// The launchers: a block of NT threads per window group of the rows,
+// whatever wg is, gated or not (GATED launches the same grid; see the note
+// on gating at the top).  n is the number of rows; the columns are only
+// ever indexed through the windows.
 #define SPH_GEO_PARAMS                                                       \
   const float4 *geo, const float *m, const float *h, const int *starts,     \
       const int *ends
-#define SPH_GEO_ARGS geo, m, h, starts, ends
-#define SPH_FORCE_PARAMS                                                     \
-  const float4 *geo, const float4 *attr, const float *sup2, const float *h,  \
-      const float *pres, const float *omega, const int *starts,             \
-      const int *ends, float *ax, float *ay, float *az, float *du,          \
+#define SPH_GEO_ARGS geo, m, geo, h, starts, ends
+#define SPH_GEO_ROWS_PARAMS                                                  \
+  const float4 *geo, const float *m, const float4 *geo_rows, const float *h, \
+      const int *starts, const int *ends
+#define SPH_GEO_ROWS_ARGS geo, m, geo_rows, h, starts, ends
+#define SPH_FORCE_OUT_PARAMS                                                 \
+  const float *h, const float *pres, const float *omega, const int *starts, \
+      const int *ends, float *ax, float *ay, float *az, float *du,           \
       float *araw
+#define SPH_FORCE_PARAMS                                                     \
+  const float4 *geo, const float4 *attr, const float *sup2,                  \
+      SPH_FORCE_OUT_PARAMS
 #define SPH_FORCE_ARGS                                                       \
-  geo, attr, sup2, h, pres, omega, starts, ends, ax, ay, az, du, araw
+  geo, attr, sup2, geo, attr, h, pres, omega, starts, ends, ax, ay, az, du, \
+      araw
+#define SPH_FORCE_ROWS_PARAMS                                                \
+  const float4 *geo, const float4 *attr, const float *sup2,                  \
+      const float4 *geo_rows, const float4 *attr_rows, SPH_FORCE_OUT_PARAMS
+#define SPH_FORCE_ROWS_ARGS                                                  \
+  geo, attr, sup2, geo_rows, attr_rows, h, pres, omega, starts, ends, ax,   \
+      ay, az, du, araw
 #define SPH_GRAV_OUT_PARAMS const float *split, float *gx, float *gy, float *gz
 #define SPH_GATE_PARAMS const int *worklist, const int *count
 
 template <bool VARH, bool GATED>
-int launch_density(SPH_GEO_PARAMS, float* rho_raw, float* omega_raw,
+int launch_density(SPH_GEO_ROWS_PARAMS, float* rho_raw, float* omega_raw,
                    SPH_GATE_PARAMS, int n, int wg, void* stream) {
   if (wg < 1 || wg > WG_MAX) return (int)cudaErrorInvalidValue;
   const int groups = n / wg;
   if (groups > 0) {
     density_kernel<VARH, GATED><<<groups, NT, 0, (cudaStream_t)stream>>>(
-        SPH_GEO_ARGS, rho_raw, omega_raw, wg, worklist, count);
+        SPH_GEO_ROWS_ARGS, rho_raw, omega_raw, wg, worklist, count);
   }
   return (int)cudaGetLastError();
 }
 
 template <bool VARH, bool FUSE, bool GATED>
-int launch_force(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
+int launch_force(SPH_FORCE_ROWS_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
                  int n, int wg, float av_eps, float beta_factor,
                  void* stream) {
   if (wg < 1 || wg > WG_MAX) return (int)cudaErrorInvalidValue;
   const int groups = n / wg;
   if (groups > 0) {
     force_kernel<VARH, FUSE, GATED><<<groups, NT, 0, (cudaStream_t)stream>>>(
-        SPH_FORCE_ARGS, split, gx, gy, gz, wg, av_eps, beta_factor, worklist,
-        count);
+        SPH_FORCE_ROWS_ARGS, split, gx, gy, gz, wg, av_eps, beta_factor,
+        worklist, count);
   }
   return (int)cudaGetLastError();
 }
 
 template <bool GATED>
-int launch_grav_short(SPH_GEO_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
-                      int n, int wg, void* stream) {
+int launch_grav_short(SPH_GEO_ROWS_PARAMS, SPH_GRAV_OUT_PARAMS,
+                      SPH_GATE_PARAMS, int n, int wg, void* stream) {
   if (wg < 1 || wg > WG_MAX) return (int)cudaErrorInvalidValue;
   const int groups = n / wg;
   if (groups > 0) {
     grav_short_kernel<GATED><<<groups, NT, 0, (cudaStream_t)stream>>>(
-        SPH_GEO_ARGS, split, gx, gy, gz, wg, worklist, count);
+        SPH_GEO_ROWS_ARGS, split, gx, gy, gz, wg, worklist, count);
   }
   return (int)cudaGetLastError();
 }
@@ -963,7 +1001,10 @@ extern "C" {
 // n, wg, ..., stream.  The force entry points take the per-particle records
 // of pack_force (geo [n, 4], attr [n, 8] or with variable h [n, 16], sup2
 // [n] or null), the density and gravity entry points geo and the masked
-// mass m.
+// mass m.  Every `_rows` entry point (the row-slab form) takes the
+// columns' records and mass, then the rows' (geo_rows, and for the force
+// attr_rows), then h (P, Omega) of the n rows, the windows of their n / wg
+// groups and the n rows' outputs.
 
 int density_fixed_h(SPH_GEO_PARAMS, float* rho_raw, int n, int wg,
                     void* stream) {
@@ -975,6 +1016,12 @@ int density_fixed_h_gated(SPH_GEO_PARAMS, float* rho_raw,
                           SPH_GATE_PARAMS, int n, int wg, void* stream) {
   return launch_density<false, true>(SPH_GEO_ARGS, rho_raw, nullptr,
                                      worklist, count, n, wg, stream);
+}
+
+int density_fixed_h_rows(SPH_GEO_ROWS_PARAMS, float* rho_raw, int n, int wg,
+                         void* stream) {
+  return launch_density<false, false>(SPH_GEO_ROWS_ARGS, rho_raw, nullptr,
+                                      nullptr, nullptr, n, wg, stream);
 }
 
 // density_fixed_h plus the grad-h sums omega_raw (variable h).
@@ -991,6 +1038,12 @@ int density_var_h_gated(SPH_GEO_PARAMS, float* rho_raw,
                                     worklist, count, n, wg, stream);
 }
 
+int density_var_h_rows(SPH_GEO_ROWS_PARAMS, float* rho_raw, float* omega_raw,
+                       int n, int wg, void* stream) {
+  return launch_density<true, false>(SPH_GEO_ROWS_ARGS, rho_raw, omega_raw,
+                                     nullptr, nullptr, n, wg, stream);
+}
+
 int force_fixed_h(SPH_FORCE_PARAMS, int n, int wg, float av_eps,
                   float beta_factor, void* stream) {
   return launch_force<false, false, false>(
@@ -1003,6 +1056,13 @@ int force_fixed_h_gated(SPH_FORCE_PARAMS, SPH_GATE_PARAMS, int n, int wg,
   return launch_force<false, false, true>(
       SPH_FORCE_ARGS, nullptr, nullptr, nullptr, nullptr, worklist, count, n,
       wg, av_eps, beta_factor, stream);
+}
+
+int force_fixed_h_rows(SPH_FORCE_ROWS_PARAMS, int n, int wg, float av_eps,
+                       float beta_factor, void* stream) {
+  return launch_force<false, false, false>(
+      SPH_FORCE_ROWS_ARGS, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, n, wg, av_eps, beta_factor, stream);
 }
 
 // force_fixed_h plus the short-range gravity sums gx, gy, gz; split is
@@ -1022,7 +1082,7 @@ int force_fixed_h_grav_gated(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS,
       beta_factor, stream);
 }
 
-// The variable-h forms of the four entry points above, with the same
+// The variable-h forms of the force entry points above, with the same
 // arguments.
 int force_var_h(SPH_FORCE_PARAMS, int n, int wg, float av_eps,
                 float beta_factor, void* stream) {
@@ -1036,6 +1096,13 @@ int force_var_h_gated(SPH_FORCE_PARAMS, SPH_GATE_PARAMS, int n, int wg,
   return launch_force<true, false, true>(
       SPH_FORCE_ARGS, nullptr, nullptr, nullptr, nullptr, worklist, count, n,
       wg, av_eps, beta_factor, stream);
+}
+
+int force_var_h_rows(SPH_FORCE_ROWS_PARAMS, int n, int wg, float av_eps,
+                     float beta_factor, void* stream) {
+  return launch_force<true, false, false>(
+      SPH_FORCE_ROWS_ARGS, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, n, wg, av_eps, beta_factor, stream);
 }
 
 int force_var_h_grav(SPH_FORCE_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
@@ -1087,6 +1154,12 @@ int grav_short_gated(SPH_GEO_PARAMS, SPH_GRAV_OUT_PARAMS, SPH_GATE_PARAMS,
                      int n, int wg, void* stream) {
   return launch_grav_short<true>(SPH_GEO_ARGS, split, gx, gy, gz, worklist,
                                  count, n, wg, stream);
+}
+
+int grav_short_rows(SPH_GEO_ROWS_PARAMS, SPH_GRAV_OUT_PARAMS, int n, int wg,
+                    void* stream) {
+  return launch_grav_short<false>(SPH_GEO_ROWS_ARGS, split, gx, gy, gz,
+                                  nullptr, nullptr, n, wg, stream);
 }
 
 }  // extern "C"

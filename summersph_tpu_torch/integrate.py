@@ -32,8 +32,21 @@ tick and the health checks.
 
 `neighbor_mode='grid'` runs on the sorted engine: the JAX package's hashed
 grid exists because gathers are dear on the TPU, and both engines sum the
-same pairs.  Configurations outside the ported path raise
-`NotImplementedError` (`check_supported`).
+same pairs.  `neighbor_mode='dense'` runs the O(N^2) oracle
+(`ops/density.py`, `ops/forces.py`): every pair, no sort.
+
+With `axis_name` (a `parallel.Mesh`; `parallel/sharded.py` drives it) the
+same step runs on several ranks in gather mode: each holds a slab of the
+particle rows and the replicated sinks, t and dt.  The sorted engine
+gathers the particles, sorts the whole set on every rank and sums the
+rank's slab of the sorted rows (`_force_eval_sorted_sharded`, the
+row-slab kernels); the dense engine sums the rank's rows against the
+gathered columns; dt, accretion, sink creation and the sink pull go
+through the mesh's collectives, and of the health counters the
+h-iteration's and the non-finite count are summed over the ranks (the
+window counters come from the replicated sort).  The slab decomposition
+and block timesteps on several ranks raise `NotImplementedError`
+(`check_supported`).
 """
 
 from __future__ import annotations
@@ -46,34 +59,47 @@ from typing import Callable, Optional
 import torch
 
 from .config import SimConfig
-from .ops.cuda_pairs import pair_eval, window_overflow
+from .ops.cuda_pairs import density, forces, pair_eval, window_overflow
+from .ops.density import compute_density
+from .ops.eos import eos_update
+from .ops.forces import compute_sph_forces
 from .ops.gravity import gas_gravity_direct, sink_gravity
 from .ops.pm_gravity import (PM_MODES, gas_gravity_pm, gas_gravity_pm_held,
                              pm_geometry, pm_long_range_held,
                              recompute_far_field)
 from .ops.sinks import accrete, create_sinks, cull_bounds, merge_sinks
 from .ops.smoothing import update_smoothing
-from .ops.sorted_grid import SORTED_MODES, sort_particles
+from .ops.sorted_grid import (LANES, SORTED_MODES, sort_h_pad,
+                               sort_particles)
 from .ops.timestep import next_timestep
+from .parallel.comm import (Mesh, all_gather_fields, axis_index,
+                            gather_particles, psum)
 from .state import Particles, SimState, Sinks
 
 
-def check_supported(cfg: SimConfig, axis_name: Optional[str] = None):
+def check_supported(cfg: SimConfig, axis_name: Optional[Mesh] = None):
     """Raise NotImplementedError for a configuration the port does not run
-    yet (ROADMAP.md lists the later slices)."""
+    yet (ROADMAP.md lists the later slices): on several devices, the slab
+    decomposition and block timesteps.  `axis_name` is a `parallel.Mesh`
+    or None."""
+    if axis_name is None:
+        return
+    if not isinstance(axis_name, Mesh):
+        raise TypeError(f"axis_name must be a parallel.Mesh (make_mesh), "
+                        f"not {axis_name!r}")
     problems = []
-    if cfg.neighbor_mode not in SORTED_MODES:
-        problems.append(f"neighbor_mode={cfg.neighbor_mode!r} "
-                        f"(only 'sorted' and 'grid')")
-    if axis_name is not None:
-        problems.append(f"multi-device runs (axis_name={axis_name!r})")
+    if cfg.decomp == "slab":
+        problems.append("decomp='slab' (the slab decomposition)")
+    if cfg.dt_bins > 1:
+        problems.append(f"block timesteps (dt_bins={cfg.dt_bins})")
     if problems:
         raise NotImplementedError(
-            "not ported to summersph_tpu_torch yet: " + "; ".join(problems))
+            "not ported to summersph_tpu_torch yet on several devices: "
+            + "; ".join(problems))
 
 
 def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
-               axis_name: Optional[str] = None, pm=None):
+               axis_name: Optional[Mesh] = None, pm=None):
     """Sort -> density -> EOS -> SPH forces -> self-gravity -> sink gravity.
 
     Returns (particles with rho/P/cs/omega/acc/du/dalpha filled, sinks with
@@ -83,7 +109,10 @@ def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
     else None.  `pm` = (pm_phase, r_s_held, held_valid) drives the
     far-field subcycle (`pm_gravity.recompute_far_field`); None recomputes.
     The returned particles are in sorted order and may be padded beyond
-    the caller's capacity; `step` and `prime` slice back.
+    the caller's capacity; `step` and `prime` slice back (the dense engine
+    keeps the caller's order).  With `axis_name` `p` is this rank's rows
+    and the returned particles too: on the sorted engine its slab of the
+    sorted order.
     """
     if cfg.pm_every > 1 and (cfg.neighbor_mode != "sorted"
                              or (axis_name is not None
@@ -99,7 +128,38 @@ def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
             "force kernel) is implemented for the single-device sorted "
             "engine with use_pallas=True")
     check_supported(cfg, axis_name)
-    return _force_eval_sorted(p, s, cfg, pm)
+    if cfg.neighbor_mode in SORTED_MODES:
+        if axis_name is None:
+            return _force_eval_sorted(p, s, cfg, pm)
+        return _force_eval_sorted_sharded(p, s, cfg, axis_name, pm)
+    return _force_eval_dense(p, s, cfg, axis_name)
+
+
+def _force_eval_dense(p: Particles, s: Sinks, cfg: SimConfig,
+                      axis_name: Optional[Mesh]):
+    """force_eval on the dense engine: every pair, in the caller's order.
+    With `axis_name` the rows are this rank's and the columns the
+    gathered set, gathered again after the density pass for its fields."""
+    cols = gather_particles(p, axis_name) if axis_name is not None else None
+    p = eos_update(compute_density(p, cfg, cols=cols), cfg)
+    cols = gather_particles(p, axis_name) if axis_name is not None else None
+    acc, du, dalpha = compute_sph_forces(p, cfg, cols=cols)
+
+    grav_over = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    if cfg.gravity == "direct":
+        acc = acc + gas_gravity_direct(p, cfg, cols=cols)
+    elif cfg.gravity in PM_MODES:
+        if axis_name is None:
+            acc_pm, grav_over = gas_gravity_pm(p, cfg)
+        else:
+            # the gathered columns are the ranks' rows in rank order
+            off = axis_index(axis_name) * p.capacity
+            acc_pm, grav_over = gas_gravity_pm(cols, cfg, rows=(p, off),
+                                               axis_name=axis_name)
+        acc = acc + acc_pm
+    acc_gas_sink, acc_sink = sink_gravity(p, s, axis_name)
+    p = p.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
+    return p, s.replace(acc=acc_sink), (None, grav_over, None)
 
 
 def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
@@ -107,10 +167,10 @@ def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
     four branches: direct; TreePM with the short range fused into the
     force kernel; TreePM with the separate short-range kernel; either
     TreePM form with the far field held between solves (cfg.pm_every).
-    With variable h the sort carries `cfg.sort_h_pad` cell headroom, so
-    the same grid stays exact through the step's h-iteration."""
-    h_pad = 1.0 if cfg.fixed_h is not None else cfg.sort_h_pad
-    p2, sgrid = sort_particles(p, cfg, h_pad=h_pad)
+    With variable h the sort carries cell headroom (`sort_h_pad`:
+    cfg.sort_h_pad, or 1.25 under 'grid'), so the same grid stays exact
+    through the step's h-iteration."""
+    p2, sgrid = sort_particles(p, cfg, h_pad=sort_h_pad(cfg))
     pm_grav = cfg.gravity in PM_MODES
     fuse = cfg.grav_fuse_short and pm_grav
     phase = r_s_held = None
@@ -162,6 +222,56 @@ def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
     return p2, s.replace(acc=acc_sink), (sgrid, grav_over, pm_r_s)
 
 
+def _force_eval_sorted_sharded(p: Particles, s: Sinks, cfg: SimConfig,
+                               mesh: Mesh, pm=None):
+    """The sorted engine on several ranks (gather mode).  Every rank
+    gathers the particles, sorts the whole set with the same stable sort,
+    and owns the contiguous slab of the sorted rows at rank x capacity:
+    the density pass on its slab (the row-slab kernel), the EOS, one
+    gather of (rho, P, cs, Omega) into the columns, the force pass on its
+    slab, then gravity on its slab (the mesh and the short range summed
+    over the ranks).  Two gathers and a replicated sort a step; the pair
+    sums, the dominant cost, split over the ranks.  The per-rank capacity
+    must be a multiple of max(sorted_block, 128), so that the sort adds
+    no padding (`parallel.pad_state_to_devices`)."""
+    nloc = p.capacity
+    if nloc % max(cfg.sorted_block, LANES):
+        raise ValueError(
+            f"sharded sorted runs need the per-rank capacity ({nloc}) to be "
+            f"a multiple of max(sorted_block, {LANES}) so the replicated "
+            f"sort needs no extra padding; pad the state first "
+            f"(parallel.pad_state_to_devices)")
+    pf2, grid = sort_particles(gather_particles(p, mesh), cfg,
+                               h_pad=sort_h_pad(cfg))
+    off = axis_index(mesh) * nloc
+    rows = pf2.map(lambda a: a[off:off + nloc])
+    rows = eos_update(density(pf2, cfg, grid, rows=(rows, off)), cfg)
+    rho, pres, cs, omega = all_gather_fields(
+        [rows.rho, rows.pressure, rows.cs, rows.omega], mesh)
+    pf2 = pf2.replace(rho=rho, pressure=pres, cs=cs, omega=omega)
+    acc, du, dalpha = forces(pf2, cfg, grid, rows=(rows, off))
+
+    grav_over = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    pm_r_s = None
+    if cfg.gravity == "direct":
+        acc = acc + gas_gravity_direct(rows, cfg, cols=pf2)
+    elif cfg.gravity in PM_MODES:
+        if cfg.pm_every > 1:
+            phase, r_s_held, held_valid = pm or (None, None, False)
+            acc_pm, grav_over, acc_long, pm_r_s = gas_gravity_pm_held(
+                pf2, cfg, phase, r_s_held, held_valid, rows=(rows, off),
+                axis_name=mesh)
+            rows = rows.replace(acc_ext=acc_long)
+        else:
+            acc_pm, grav_over = gas_gravity_pm(pf2, cfg, rows=(rows, off),
+                                               axis_name=mesh)
+        acc = acc + acc_pm
+
+    acc_gas_sink, acc_sink = sink_gravity(rows, s, mesh)
+    rows = rows.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
+    return rows, s.replace(acc=acc_sink), (grid, grav_over, pm_r_s)
+
+
 def kick(p: Particles, s: Sinks, dt):
     """Half-kick: v += a dt/2, u += du dt/2, alpha += dalpha dt/2, with
     the Kahan-compensated u update when the carry `u_c` is present."""
@@ -195,10 +305,15 @@ def drift(p: Particles, s: Sinks, dt):
 
 def _coverage_stats(cfg: SimConfig, grid, grav_over, n_unconverged,
                     nonfinite, sink_full):
-    """int32[len(STATS_FIELDS)] health counters for this step.  The
-    decomposition slot stays 0: multi-device runs are not ported."""
-    zero = torch.zeros((), dtype=torch.int32, device=grid.key.device)
-    return torch.stack([window_overflow(grid, cfg), grid.n_clamped,
+    """int32[len(STATS_FIELDS)] health counters for this step.  The window
+    slots are 0 on the dense engine (no grid); the decomposition slot
+    stays 0: the slab decomposition is not ported."""
+    zero = torch.zeros((), dtype=torch.int32, device=grav_over.device)
+    if grid is None:
+        sph_over = clamped = zero
+    else:
+        sph_over, clamped = window_overflow(grid, cfg), grid.n_clamped
+    return torch.stack([sph_over, clamped,
                         grav_over.to(torch.int32),
                         n_unconverged.to(torch.int32),
                         nonfinite.to(torch.int32), sink_full.to(torch.int32),
@@ -212,17 +327,18 @@ def _count_nonfinite(p: Particles) -> torch.Tensor:
     return torch.sum(p.alive & ~ok).to(torch.int32)
 
 
-def step(state: SimState, cfg: SimConfig, axis_name: Optional[str] = None,
+def step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh] = None,
          pm_phase: Optional[int] = None) -> SimState:
     """One full KDK step.  With `cfg.reuse_forces` it needs primed rates
     (see `prime`).  `pm_phase` (cfg.pm_every > 1): this step's host-side
     position in the far-field subcycle -- None or 0 solves the mesh,
     nonzero reuses the held force, after one device read of the held
-    split (`run_steps` knows the held force is valid and skips it)."""
+    split (`run_steps` knows the held force is valid and skips it).  With
+    `axis_name` (a `parallel.Mesh`) the step of this rank's rows."""
     return _step(state, cfg, axis_name, pm_phase, held_valid=False)
 
 
-def _step(state: SimState, cfg: SimConfig, axis_name: Optional[str],
+def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
           pm_phase: Optional[int], held_valid: bool) -> SimState:
     check_supported(cfg, axis_name)
     p, s, dt = state.particles, state.sinks, state.dt
@@ -247,21 +363,32 @@ def _step(state: SimState, cfg: SimConfig, axis_name: Optional[str],
         p, s = kick(p, s, dt)
 
     t = state.t + dt
-    dt = next_timestep(p, dt, cfg)
+    dt = next_timestep(p, dt, cfg, axis_name)
 
     n_unconverged = torch.zeros((), dtype=torch.int32, device=p.pos.device)
     sink_full = torch.zeros((), dtype=torch.int32, device=p.pos.device)
     if cfg.fixed_h is None:
-        p, n_unconverged = update_smoothing(p, cfg, grid=grid)
-        s, sink_full = create_sinks(p, s, cfg)
+        cols = (gather_particles(p, axis_name) if axis_name is not None
+                else None)
+        p, n_unconverged = update_smoothing(p, cfg, cols=cols, grid=grid,
+                                            axis_name=axis_name)
+        s, sink_full = create_sinks(p, s, cfg, axis_name)
 
-    p, s = accrete(p, s)
+    p, s = accrete(p, s, axis_name)
     if cfg.sink_merge_factor > 0.0:
+        # the sinks are replicated: merging needs no collective
         s, _ = merge_sinks(s, cfg)
     p, s = cull_bounds(p, s, cfg)
 
     stats = _coverage_stats(cfg, grid, grav_over, n_unconverged,
                             _count_nonfinite(p), sink_full)
+    if axis_name is not None:
+        # the window counters (0-2) come from the replicated sort and
+        # sink_slots_full (5) from replicated sinks: summing them would
+        # multiply them by the rank count.  Only the per-rank h-iteration
+        # (3) and non-finite (4) counts are summed.
+        stats = torch.cat([stats[:3], psum(stats[3:5], axis_name),
+                           stats[5:]])
     if p.capacity != cap0:  # drop the sort's dead pad slots
         p = p.map(lambda a: a[:cap0])
     out = state.replace(particles=p, sinks=s, t=t, dt=dt, stats=stats)
@@ -297,29 +424,34 @@ def init_carries(state: SimState, cfg: SimConfig) -> SimState:
 init_kahan = init_carries
 
 
-def prime(state: SimState, cfg: SimConfig) -> SimState:
+def prime(state: SimState, cfg: SimConfig,
+          axis_name: Optional[Mesh] = None) -> SimState:
     """Evaluate forces at the current positions (acc/du/dalpha and
     rho/P/cs/omega, and with cfg.pm_every > 1 a fresh acc_ext), as the
     carried-rate KDK needs before its first step.  The particle order
-    comes back permuted (identity in pid)."""
+    comes back permuted (identity in pid).  With `axis_name` (a
+    `parallel.Mesh`) `state` holds this rank's rows."""
     state = init_carries(state, cfg)
     cap0 = state.particles.capacity
-    p, s, _ = force_eval(state.particles, state.sinks, cfg)
+    p, s, _ = force_eval(state.particles, state.sinks, cfg, axis_name)
     if p.capacity != cap0:
         p = p.map(lambda a: a[:cap0])
     return state.replace(particles=p, sinks=s)
 
 
-def run_steps(state: SimState, cfg: SimConfig, n_steps: int) -> SimState:
+def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
+              axis_name: Optional[Mesh] = None) -> SimState:
     """Advance exactly n_steps: global steps, or with cfg.dt_bins > 1 base
     steps of the block-timestep engine (`blockstep.step_binned`).  The
     far-field phase is step % pm_every, pinned to this call: its first step
     solves the mesh, so a resumed state never starts from a stale held
     force, and the later steps know their held force is valid.  The
     returned `stats` is the running maximum of the per-step counters over
-    these steps, so one bad step cannot hide."""
+    these steps, so one bad step cannot hide.  With `axis_name` (a
+    `parallel.Mesh`) the steps of this rank's rows."""
     from .blockstep import _step_binned  # blockstep imports this module
 
+    check_supported(cfg, axis_name)
     state = init_carries(state, cfg)
     state = state.replace(stats=torch.zeros_like(state.stats))
     every = max(cfg.pm_every, 1)
@@ -327,7 +459,7 @@ def run_steps(state: SimState, cfg: SimConfig, n_steps: int) -> SimState:
         if cfg.dt_bins > 1:
             out = _step_binned(state, cfg, i % every, held_valid=i > 0)
         else:
-            out = _step(state, cfg, None, i % every, held_valid=i > 0)
+            out = _step(state, cfg, axis_name, i % every, held_valid=i > 0)
         state = out.replace(stats=torch.maximum(out.stats, state.stats))
     return state
 
@@ -338,8 +470,7 @@ def check_coverage(state: SimState, cfg: SimConfig, warn: bool = True) -> int:
     their plain versions walk every window group's whole candidate range,
     so this is 0 and `warn` has nothing to warn about; the JAX package's
     static windows can drop pairs, and its signature is kept."""
-    h_pad = 1.0 if cfg.fixed_h is not None else cfg.sort_h_pad
-    _, grid = sort_particles(state.particles, cfg, h_pad=h_pad)
+    _, grid = sort_particles(state.particles, cfg, h_pad=sort_h_pad(cfg))
     return int(window_overflow(grid, cfg))
 
 
@@ -381,15 +512,19 @@ def check_health(state: SimState, where: str = "") -> None:
 
 
 def run_until(state: SimState, t_stop, cfg: SimConfig,
-              max_steps: int = 1_000_000, steps_per_sync: int = 8) -> SimState:
+              max_steps: int = 1_000_000, steps_per_sync: int = 8,
+              axis_name: Optional[Mesh] = None) -> SimState:
     """Advance until t >= t_stop, in `run_steps` segments of
     `steps_per_sync` steps with one host read of `t` between them.  It may
     overshoot t_stop by up to steps_per_sync - 1 steps, as the JAX
-    package's `run_until` does."""
+    package's `run_until` does.  With `axis_name` (a `parallel.Mesh`) t
+    is replicated, so every rank reads the same value and runs the same
+    segments."""
+    check_supported(cfg, axis_name)
     t_stop = float(t_stop)
     done = 0
     while float(state.t) < t_stop and done < max_steps:
-        state = run_steps(state, cfg, steps_per_sync)
+        state = run_steps(state, cfg, steps_per_sync, axis_name)
         done += steps_per_sync
     return state
 

@@ -24,6 +24,18 @@ kernel (counted apart: `gated_launches`, `var_gated_launches`,
 on the device.  Rows of the other groups come back 0.  Columns are never
 gated: an active row sums over all its candidates.
 
+The multi-device gather mode computes a slab of the rows: with `rows` =
+(p_rows, offset) (for `grav_short_sums` (offset, n_rows)) only the sorted
+rows [offset, offset + n_rows), whole window groups, against every column,
+by the `_rows` form of the ungated kernel (counted apart: `rows_launches`,
+`var_rows_launches`), which reads the slab's rows and windows from offset
+pointers into the whole set's.  Gather mode's rows are a slice of the
+gathered columns, so every row field is the columns' (their pack's records
+from `offset` on) except the density's h, which the h-iteration changes
+on the rows alone and which is read from p_rows.  The slabs of a launch,
+laid end to end, equal the whole launch bit for bit, in the kernels as in
+the plain versions.
+
 Both versions compute the same sums over the same ranges: for every
 window group of `cfg.window_group` sorted rows and each of the 9 plane
 offsets, every candidate in the group's true [starts, ends), under each
@@ -79,17 +91,21 @@ def _on_cpu(t: torch.Tensor) -> bool:
 def _library() -> ctypes.CDLL:
     lib = build.load("sph_pairs")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, n_ptr, tail in (
-            ("density_fixed_h", 6, [i32, i32, ptr]),
-            ("density_var_h", 7, [i32, i32, ptr]),
-            ("force_fixed_h", 13, [i32, i32, f32, f32, ptr]),
-            ("force_var_h", 13, [i32, i32, f32, f32, ptr]),
-            ("force_fixed_h_grav", 17, [i32, i32, f32, f32, ptr]),
-            ("force_var_h_grav", 17, [i32, i32, f32, f32, ptr]),
-            ("grav_short", 9, [i32, i32, ptr])):
-        # the gated form: two more pointers, worklist and count
-        for fn, k in ((getattr(lib, name), n_ptr),
-                      (getattr(lib, name + "_gated"), n_ptr + 2)):
+    for name, n_ptr, tail, n_rows_ptr in (
+            ("density_fixed_h", 6, [i32, i32, ptr], 1),
+            ("density_var_h", 7, [i32, i32, ptr], 1),
+            ("force_fixed_h", 13, [i32, i32, f32, f32, ptr], 2),
+            ("force_var_h", 13, [i32, i32, f32, f32, ptr], 2),
+            ("force_fixed_h_grav", 17, [i32, i32, f32, f32, ptr], 0),
+            ("force_var_h_grav", 17, [i32, i32, f32, f32, ptr], 0),
+            ("grav_short", 9, [i32, i32, ptr], 1)):
+        # the gated form: two more pointers, worklist and count; the
+        # row-slab form: the rows' records (geo, for the force also attr)
+        forms = [(getattr(lib, name), n_ptr),
+                 (getattr(lib, name + "_gated"), n_ptr + 2)]
+        if n_rows_ptr:
+            forms.append((getattr(lib, name + "_rows"), n_ptr + n_rows_ptr))
+        for fn, k in forms:
             fn.argtypes = [ptr] * k + tail
             fn.restype = i32
     lib.pack_force.argtypes = [ptr] * 14 + [i32, i32, ptr]
@@ -98,10 +114,13 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid,
-                       packed=()):
+                       packed=(), row_floats=None, n_rows=None):
     """Raise on what the kernels do not take.  The fields named in `packed`
     reach a kernel through a pack, which copies them, and need not be
-    contiguous; every other one is passed by its pointer."""
+    contiguous; every other one is passed by its pointer.  `row_floats`
+    are fields of the `n_rows` rows of a row-slab launch."""
+    if row_floats:
+        _check_cuda_inputs(n_rows, None, row_floats, {}, None)
     for name, t in floats.items():
         if t.dtype != torch.float32:
             raise TypeError(f"CUDA pair kernels take float32 only; {name} "
@@ -112,6 +131,10 @@ def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid,
             raise ValueError(f"{name}: expected a contiguous CUDA tensor of "
                              f"shape ({n},), got {tuple(t.shape)} on "
                              f"{t.device} (contiguous={t.is_contiguous()})")
+    if grid is None:
+        return
+    if ints["key"].dtype != torch.int32:
+        raise TypeError("grid.key must be int32")
     for name in ("starts", "ends"):
         t = getattr(grid, name)
         if (t.dtype != torch.int32 or not t.is_contiguous()
@@ -119,8 +142,6 @@ def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid,
             raise ValueError(f"grid.{name}: expected contiguous int32 "
                              f"[{groups}, 9], got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if ints["key"].dtype != torch.int32:
-        raise TypeError("grid.key must be int32")
 
 
 def _gate_pointers(active, groups: int, device):
@@ -224,73 +245,110 @@ def _groups(n: int, cfg: SimConfig, grid: SortedGrid) -> int:
     return n // wg
 
 
+def _row_slab(n: int, cfg: SimConfig, offset: int, n_rows: int, active):
+    """(first group, groups) of the row slab [offset, offset + n_rows) of
+    n sorted rows, after checking that it is whole window groups inside
+    the set and that no gate comes with it (the row-slab form has no gated
+    form)."""
+    wg = cfg.window_group
+    if active is not None:
+        raise ValueError("a row-slab launch (rows=) takes no `active` gate")
+    if offset % wg or n_rows % wg or offset < 0 or offset + n_rows > n:
+        raise ValueError(f"row slab [{offset}, {offset + n_rows}) of {n} "
+                         f"rows is not whole window groups of {wg}")
+    return offset // wg, n_rows // wg
+
+
+def _windows(grid: SortedGrid, slab):
+    """The window starts and ends of the launch's groups: all of them, or
+    the slab's (a contiguous view, so its pointer is starts + g0 * 9)."""
+    if slab is None:
+        return grid.starts, grid.ends
+    g0, gl = slab
+    return grid.starts[g0:g0 + gl], grid.ends[g0:g0 + gl]
+
+
 # --------------------------------------------------------------- density
 
 def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
-                 active=None):
+                 active=None, rows=None):
     """(rho_raw, omega_raw), each [N]: rho_raw = sum_j m_j W(r_ij, h_i)
     over the windows, self excluded (pairs.finalize_density adds it), and
     with variable h the grad-h sum omega_raw = sum_j m_j dW/dh(r_ij, h_i);
     with fixed h omega_raw is zero, as `pallas_density_sums` returns it.
     With `active` = (worklist, count) only the listed window groups, 0 on
-    the rest.  CPU: the plain version; CUDA: the `density_fixed_h` kernel,
-    or `density_var_h` when cfg.fixed_h is None, or with `active` their
-    `_gated` forms."""
+    the rest.  With `rows` = (p_rows, offset) the p_rows.capacity rows
+    from `offset` on, each [n_rows], with the rows' h from p_rows.  CPU:
+    the plain version; CUDA: the `density_fixed_h` kernel, or
+    `density_var_h` when cfg.fixed_h is None, or with `active` their
+    `_gated` forms, with `rows` their `_rows` forms."""
     if _on_cpu(p.pos):
-        return density_sums_plain(p, cfg, grid, active)
+        return density_sums_plain(p, cfg, grid, active, rows)
     n = p.capacity
     groups = _groups(n, cfg, grid)
     # dead particles carry mass 0, as in the TPU pack
     m = torch.where(p.alive, p.mass, 0.0)
-    h = p.h.contiguous()
-    _check_cuda_inputs(n, groups, {"x": p.pos[:, 0], "m": m, "h": h},
-                       {"key": grid.key}, grid, packed=("x",))
+    if rows is None:
+        h, n_rows, slab = p.h.contiguous(), n, None
+    else:
+        h, n_rows = rows[0].h.contiguous(), rows[0].capacity
+        slab = _row_slab(n, cfg, rows[1], n_rows, active)
+    _check_cuda_inputs(n, groups, {"x": p.pos[:, 0], "m": m},
+                       {"key": grid.key}, grid, packed=("x",),
+                       row_floats={"h": h}, n_rows=n_rows)
     geo = pack_geometry(p.pos, grid.key)
+    geo_rows = () if slab is None else (
+        geo[slab[0] * cfg.window_group:].data_ptr(),)
+    starts, ends = _windows(grid, slab)
     gated = active is not None
     gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
     var = cfg.fixed_h is None
     # a gated kernel leaves unlisted rows unwritten: they must read 0
     outs = (torch.zeros if gated or not var else torch.empty)(
-        (2, n), dtype=torch.float32, device=p.pos.device)
+        (2, n_rows), dtype=torch.float32, device=p.pos.device)
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
-    name = ("density_var_h" if var else "density_fixed_h") + (
-        "_gated" if gated else "")
+    name = (("density_var_h" if var else "density_fixed_h")
+            + ("_gated" if gated else "") + ("_rows" if slab else ""))
     _launch(getattr(_library(), name),
-            geo.data_ptr(), m.data_ptr(), h.data_ptr(),
-            grid.starts.data_ptr(), grid.ends.data_ptr(),
+            geo.data_ptr(), m.data_ptr(), *geo_rows, h.data_ptr(),
+            starts.data_ptr(), ends.data_ptr(),
             *(outs[c].data_ptr() for c in range(2 if var else 1)), *gate,
-            n, cfg.window_group, stream)
-    _count(density_sums, var, False, gated)
+            n_rows, cfg.window_group, stream)
+    _count(density_sums, var, False, gated, slab is not None)
     return outs[0], outs[1]
 
 
-def _count(wrapper, var: bool, fused: bool, gated: bool):
+def _count(wrapper, var: bool, fused: bool, gated: bool, rows=False):
     """Add one to the launch count of the kernel a wrapper just launched:
-    `launches`, with `var_`, `fused_` and `gated_` in that order for the
-    variable-h, fused-gravity and gated forms."""
+    `launches`, with `var_`, `fused_`, `gated_` and `rows_` in that order
+    for the variable-h, fused-gravity, gated and row-slab forms."""
     name = (("var_" if var else "") + ("fused_" if fused else "")
-            + ("gated_" if gated else "") + "launches")
+            + ("gated_" if gated else "") + ("rows_" if rows else "")
+            + "launches")
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def launch_counters():
     """(wrapper, attribute) of every launch count, one per CUDA kernel."""
     sph = [v + f + g + "launches" for v in ("", "var_")
-           for f in ("", "fused_") for g in ("", "gated_")]
+           for f in ("", "fused_") for g in ("", "gated_", "rows_")
+           if not (f and g == "rows_")]
     return ([(density_sums, a) for a in sph if "fused_" not in a]
             + [(force_sums, a) for a in sph]
             + [(grav_short_sums, "launches"),
-               (grav_short_sums, "gated_launches")])
+               (grav_short_sums, "gated_launches"),
+               (grav_short_sums, "rows_launches")])
 
 
-def _candidate_chunks(grid: SortedGrid, wg: int, active=None):
+def _candidate_chunks(grid: SortedGrid, wg: int, active=None, slab=None):
     """Yield (rows, idx, valid, off) for chunks of window groups: `rows`
     [Gc, wg] the groups' row indices, and, each [Gc, C], every group's 9
     candidate ranges laid end to end, padded to the longest total C over
     all groups, with a validity mask and each candidate's plane offset.
     With `active` = (worklist, count) only the groups worklist[:count]
     (the count is read here: the plain versions may wait for the
-    device)."""
+    device); with `slab` = (g0, groups) only the groups g0, g0 + 1, ...
+    of a row slab."""
     dev = grid.key.device
     ext = (grid.ends - grid.starts).long()                      # [G, 9]
     cum = torch.cumsum(ext, dim=1)
@@ -298,7 +356,9 @@ def _candidate_chunks(grid: SortedGrid, wg: int, active=None):
     step = max(1, PAIR_BUDGET // (wg * C))
     lane = torch.arange(C, device=dev)
     offs = torch.tensor(PLANE_OFFSETS, dtype=torch.int32, device=dev)
-    if active is None:
+    if slab is not None:
+        listed = torch.arange(slab[0], slab[0] + slab[1], device=dev)
+    elif active is None:
         listed = torch.arange(grid.starts.shape[0], device=dev)
     else:
         listed = active[0][:int(active[1][0])].long()
@@ -333,59 +393,79 @@ def _pair_geometry(pos: torch.Tensor, grid: SortedGrid, rows, idx, valid,
 
 
 def density_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
-                       active=None):
+                       active=None, rows=None):
     """Plain PyTorch version of `density_fixed_h` and `density_var_h` and,
-    with `active`, of their gated forms, on any device and dtype: the same
-    pair algebra (rsqrt(max(r^2, 1e-12)) form, r^2 > 0 self exclusion,
-    dW/dh shape -(3 w + q w')) over the same ranges, in chunks of window
-    groups."""
+    with `active`, of their gated forms, with `rows` of their row-slab
+    forms, on any device and dtype: the same pair algebra
+    (rsqrt(max(r^2, 1e-12)) form, r^2 > 0 self exclusion, dW/dh shape
+    -(3 w + q w')) over the same ranges, in chunks of window groups."""
     wg = cfg.window_group
     _groups(p.capacity, cfg, grid)
     var = cfg.fixed_h is None
     m_all = torch.where(p.alive, p.mass, 0.0)
-    rho = torch.zeros_like(p.h)
-    omega = torch.zeros_like(p.h)
-    for rows, idx, valid, off in _candidate_chunks(grid, wg, active):
-        mask, _, _, _, r2 = _pair_geometry(p.pos, grid, rows, idx, valid,
-                                           off)
-        inv_hi = 1.0 / p.h[rows][:, :, None]
+    h_rows, offset, slab = p.h, 0, None
+    if rows is not None:
+        h_rows, offset = rows[0].h, rows[1]
+        slab = _row_slab(p.capacity, cfg, offset, rows[0].capacity, active)
+    rho = torch.zeros_like(h_rows)
+    omega = torch.zeros_like(h_rows)
+    for ri, idx, valid, off in _candidate_chunks(grid, wg, active, slab):
+        mask, _, _, _, r2 = _pair_geometry(p.pos, grid, ri, idx, valid, off)
+        local = ri - offset          # the chunk's rows in the output
+        inv_hi = 1.0 / h_rows[local][:, :, None]
         r = r2 * torch.rsqrt(torch.clamp(r2, min=1.0e-12))
         q = r * inv_hi
         w = w_shape(q)
         m = torch.where(mask & (r2 > 0.0), m_all[idx][:, None, :], 0.0)
         inv_pi_h3 = (1.0 / PI) * inv_hi * inv_hi * inv_hi
-        rho[rows] = (torch.sum(m * w, dim=-1, keepdim=True)
+        rho[local] = (torch.sum(m * w, dim=-1, keepdim=True)
                      * inv_pi_h3)[:, :, 0]
         if var:
             dwdh = -(3.0 * w + q * dw_shape(q))
-            omega[rows] = (torch.sum(m * dwdh, dim=-1, keepdim=True)
+            omega[local] = (torch.sum(m * dwdh, dim=-1, keepdim=True)
                            * inv_pi_h3 * inv_hi)[:, :, 0]
     return rho, omega
 
 
 def density(p: Particles, cfg: SimConfig, grid: SortedGrid, active=None,
-            act_mask=None) -> Particles:
+            act_mask=None, rows=None) -> Particles:
     """`p` with rho and omega from the density pass: the sums, the self
     term and the grad-h correction (`pairs.finalize_density`); omega is 1
     with fixed h.  Counterpart of `pallas_density`, which the h-iteration
     re-sums through.  With `active` = (worklist, count) and `act_mask` [N]
     bool (block timesteps) only the listed groups are summed, and rows
-    outside `act_mask` keep their incoming rho and omega."""
-    rho_raw, omega_raw = density_sums(p, cfg, grid, active)
-    rho, omega = pairs.finalize_density(rho_raw, omega_raw, p.h, p.alive,
-                                        p.mass)
+    outside `act_mask` keep their incoming rho and omega.  With `rows` =
+    (p_rows, offset) (gather mode) p_rows is returned, its rho and omega
+    summed against the columns `p`."""
+    rho_raw, omega_raw = density_sums(p, cfg, grid, active, rows)
+    tgt = p if rows is None else rows[0]
+    rho, omega = pairs.finalize_density(rho_raw, omega_raw, tgt.h,
+                                        tgt.alive, tgt.mass)
     if cfg.fixed_h is not None:
         omega = torch.ones_like(omega)
     if act_mask is not None:
-        rho = torch.where(act_mask, rho, p.rho)
-        omega = torch.where(act_mask, omega, p.omega)
-    return p.replace(rho=rho, omega=omega)
+        rho = torch.where(act_mask, rho, tgt.rho)
+        omega = torch.where(act_mask, omega, tgt.omega)
+    return tgt.replace(rho=rho, omega=omega)
+
+
+def forces(p: Particles, cfg: SimConfig, grid: SortedGrid, rows=None):
+    """(acc [N, 3], du, dalpha) of the force pass, zero on dead rows: the
+    sums and the alpha switch (`pairs.alpha_rate`).  Counterpart of
+    `pallas_forces`; with `rows` = (p_rows, offset) for p_rows's rows only
+    (gather mode), whose fields are the columns' rows from `offset` on."""
+    ax, ay, az, du, araw = force_sums(p, cfg, grid, rows=rows)
+    tgt = p if rows is None else rows[0]
+    dalpha = pairs.alpha_rate(araw, tgt.rho, tgt.alpha, tgt.cs, tgt.h, cfg)
+    alive = tgt.alive
+    return (torch.where(alive[:, None], torch.stack([ax, ay, az], -1), 0.0),
+            torch.where(alive, du, 0.0), torch.where(alive, dalpha, 0.0))
 
 
 # ----------------------------------------------------------------- force
 
 def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
-               grav_split=None, active=None):
+               grav_split=None, active=None, rows=None):
     """(ax, ay, az, du, alpha_raw), each [N]: pressure + Monaghan
     viscosity, with one dW for fixed h or the grad-h pair of gradients and
     hbar for variable h.  `p` must carry rho/P/omega/cs from the density
@@ -393,14 +473,22 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
     sums over the same windows, as a last element (gx, gy, gz) (the fused
     form, `pallas_force_sums` with fuse_grav; the caller checks that r_cut
     fits the SPH cell).  With `active` = (worklist, count) only the listed
-    window groups, 0 on the rest.  CPU: the plain version; CUDA:
-    `force_fixed_h` or `force_var_h`, or with `grav_split`
-    `force_fixed_h_grav` or `force_var_h_grav`, by cfg.fixed_h, or with
-    `active` the `_gated` form of the same."""
+    window groups, 0 on the rest.  With `rows` = (p_rows, offset) the
+    p_rows.capacity rows from `offset` on, each [n_rows]: gather mode's
+    rows are the columns' rows, whose fields are read from `p` (no fused
+    or gated form).  CPU: the plain version; CUDA: `force_fixed_h` or
+    `force_var_h`, or with `grav_split` `force_fixed_h_grav` or
+    `force_var_h_grav`, by cfg.fixed_h, or with `active` the `_gated` form
+    of the same, with `rows` the `_rows` form."""
     if _on_cpu(p.pos):
-        return force_sums_plain(p, cfg, grid, grav_split, active)
+        return force_sums_plain(p, cfg, grid, grav_split, active, rows)
     n = p.capacity
     groups = _groups(n, cfg, grid)
+    slab = None
+    if rows is not None:
+        if grav_split is not None:
+            raise ValueError("the fused force has no row-slab form")
+        slab = _row_slab(n, cfg, rows[1], rows[0].capacity, active)
     h = p.h.contiguous()
     pres, omega = p.pressure.contiguous(), p.omega.contiguous()
     _check_cuda_inputs(
@@ -412,39 +500,56 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
     geo, attr, sup2 = pack_force(p, grid.key, var)
     gated, fused = active is not None, grav_split is not None
     gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
+    n_rows, r0 = n, 0
+    if slab is not None:
+        n_rows, r0 = slab[1] * cfg.window_group, slab[0] * cfg.window_group
     # a gated kernel leaves unlisted rows unwritten: they must read 0
     outs = (torch.zeros if gated else torch.empty)(
-        (8 if fused else 5, n), dtype=torch.float32, device=p.pos.device)
+        (8 if fused else 5, n_rows), dtype=torch.float32,
+        device=p.pos.device)
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
+    starts, ends = _windows(grid, slab)
+    # the rows' records: the columns' from the slab's first row on
+    row_recs = () if slab is None else (geo[r0:].data_ptr(),
+                                        attr[r0:].data_ptr())
     args = (geo.data_ptr(), attr.data_ptr(),
-            sup2.data_ptr() if var else None, h.data_ptr(),
-            pres.data_ptr(), omega.data_ptr(), grid.starts.data_ptr(),
-            grid.ends.data_ptr(), *(outs[c].data_ptr() for c in range(5)))
+            sup2.data_ptr() if var else None, *row_recs,
+            h[r0:].data_ptr(), pres[r0:].data_ptr(), omega[r0:].data_ptr(),
+            starts.data_ptr(), ends.data_ptr(),
+            *(outs[c].data_ptr() for c in range(5)))
     grav = ()
     if fused:
         split = _split_buffer(grav_split, p.pos.device)
         grav = (split.data_ptr(), *(outs[c].data_ptr() for c in range(5, 8)))
     name = (("force_var_h" if var else "force_fixed_h")
-            + ("_grav" if fused else "") + ("_gated" if gated else ""))
-    _launch(getattr(_library(), name), *args, *grav, *gate, n,
+            + ("_grav" if fused else "") + ("_gated" if gated else "")
+            + ("_rows" if slab else ""))
+    _launch(getattr(_library(), name), *args, *grav, *gate, n_rows,
             cfg.window_group, cfg.av_eps, cfg.beta_factor, stream)
-    _count(force_sums, var, fused, gated)
+    _count(force_sums, var, fused, gated, slab is not None)
     if not fused:
         return tuple(outs)
     return tuple(outs[:5]) + (tuple(outs[5:]),)
 
 
 def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
-                     grav_split=None, active=None):
+                     grav_split=None, active=None, rows=None):
     """Plain PyTorch version of `force_fixed_h` and `force_var_h` (with
     `grav_split` of their fused forms, with `active` of the gated form of
-    any of the four), on any device and dtype: the
-    Pallas algebra (one dW with fixed h; dW_i, dW_j, their mean and hbar
-    with variable h; the 1e-30 guards on pterm_j and rhobar, the rsqrt
-    clamp, no explicit r > 0 guard) over the same ranges, in chunks."""
+    any of the four, with `rows` of the row-slab form), on any device and
+    dtype: the Pallas algebra (one dW with fixed h; dW_i, dW_j, their mean
+    and hbar with variable h; the 1e-30 guards on pterm_j and rhobar, the
+    rsqrt clamp, no explicit r > 0 guard) over the same ranges, in
+    chunks."""
     wg = cfg.window_group
     _groups(p.capacity, cfg, grid)
     var = cfg.fixed_h is None
+    offset, slab, n_rows = 0, None, p.capacity
+    if rows is not None:
+        if grav_split is not None:
+            raise ValueError("the fused force has no row-slab form")
+        offset, n_rows = rows[1], rows[0].capacity
+        slab = _row_slab(p.capacity, cfg, offset, n_rows, active)
     m_all = torch.where(p.alive, p.mass, 0.0)
     pterm_all = p.pressure / torch.clamp(p.omega * p.rho * p.rho,
                                          min=1.0e-30)
@@ -453,9 +558,8 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
         inv_pi_hj4_all = (((1.0 / PI) * inv_hj_all * inv_hj_all)
                           * (inv_hj_all * inv_hj_all))
     nc = 5 if grav_split is None else 8
-    outs = torch.zeros((nc, p.capacity), dtype=p.pos.dtype,
-                       device=p.pos.device)
-    for rows, idx, valid, off in _candidate_chunks(grid, wg, active):
+    outs = torch.zeros((nc, n_rows), dtype=p.pos.dtype, device=p.pos.device)
+    for rows, idx, valid, off in _candidate_chunks(grid, wg, active, slab):
         mask, dxx, dxy, dxz, r2 = _pair_geometry(p.pos, grid, rows, idx,
                                                  valid, off)
 
@@ -502,7 +606,7 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
             gcoef = _grav_coef(r2, hi, m, mask, grav_split)
             sums += [gcoef * dxx, gcoef * dxy, gcoef * dxz]
         for c, s in enumerate(sums):
-            outs[c, rows] = torch.sum(s, dim=-1)
+            outs[c, rows - offset] = torch.sum(s, dim=-1)
     if grav_split is None:
         return tuple(outs)
     return tuple(outs[:5]) + (tuple(outs[5:]),)
@@ -525,19 +629,22 @@ def _grav_coef(r2, h_i, m, mask, grav_split):
 
 def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
                     grid: SortedGrid, cfg: SimConfig, grav_split,
-                    active=None):
+                    active=None, rows=None):
     """(gx, gy, gz), each [N]: the TreePM short-range gravity sums
     sum_j -G m_j [f(r_ij / h_i) - S(r_ij)] r_ij / r_ij^3 over 0 < r < r_cut
     on the gravity sort -- `pos` [N, 3], the masked mass `m` and `h` in
     the sorted order of `grid`, whose cells are r_cut wide
     (`pm_gravity.pm_short_range`).  Counterpart of
     `pallas_grav_short_sums`.  With `active` = (worklist, count), over the
-    groups of this sort, only the listed ones, 0 on the rest.  CPU: the
-    plain version; CUDA: the `grav_short` kernel, with `active`
-    `grav_short_gated`."""
+    groups of this sort, only the listed ones, 0 on the rest.  With `rows`
+    = (offset, n_rows) the sums of the sorted rows [offset, offset +
+    n_rows) only, each [n_rows] (the sharded work split of
+    `pm_short_range`).  CPU: the plain version; CUDA: the `grav_short`
+    kernel, with `active` `grav_short_gated`, with `rows`
+    `grav_short_rows`."""
     if _on_cpu(pos):
         return grav_short_sums_plain(pos, m, h, grid, cfg, grav_split,
-                                     active)
+                                     active, rows)
     n = pos.shape[0]
     groups = _groups(n, cfg, grid)
     m, h = m.contiguous(), h.contiguous()
@@ -547,37 +654,48 @@ def grav_short_sums(pos: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
     split = _split_buffer(grav_split, pos.device)
     gated = active is not None
     gate = _gate_pointers(active, groups, pos.device) if gated else ()
+    slab = None if rows is None else _row_slab(n, cfg, *rows, active)
+    n_rows, r0 = n, 0
+    if slab is not None:
+        n_rows, r0 = rows[1], rows[0]
     # a gated kernel leaves unlisted rows unwritten: they must read 0
     outs = (torch.zeros if gated else torch.empty)(
-        (3, n), dtype=torch.float32, device=pos.device)
+        (3, n_rows), dtype=torch.float32, device=pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    lib = _library()
-    _launch(lib.grav_short_gated if gated else lib.grav_short,
-            geo.data_ptr(), m.data_ptr(), h.data_ptr(),
-            grid.starts.data_ptr(), grid.ends.data_ptr(), split.data_ptr(),
+    starts, ends = _windows(grid, slab)
+    name = "grav_short" + ("_gated" if gated else "") + (
+        "_rows" if slab else "")
+    geo_rows = () if slab is None else (geo[r0:].data_ptr(),)
+    _launch(getattr(_library(), name),
+            geo.data_ptr(), m.data_ptr(), *geo_rows, h[r0:].data_ptr(),
+            starts.data_ptr(), ends.data_ptr(), split.data_ptr(),
             *(outs[c].data_ptr() for c in range(3)), *gate,
-            n, cfg.window_group, stream)
-    _count(grav_short_sums, False, False, gated)
+            n_rows, cfg.window_group, stream)
+    _count(grav_short_sums, False, False, gated, slab is not None)
     return tuple(outs)
 
 
 def grav_short_sums_plain(pos: torch.Tensor, m: torch.Tensor,
                           h: torch.Tensor, grid: SortedGrid, cfg: SimConfig,
-                          grav_split, active=None):
+                          grav_split, active=None, rows=None):
     """Plain PyTorch version of `grav_short` and, with `active`, of
-    `grav_short_gated`, on any device and dtype: the same sums over the
-    same ranges, in chunks of window groups."""
+    `grav_short_gated`, with `rows` = (offset, n_rows) of `grav_short_rows`,
+    on any device and dtype: the same sums over the same ranges, in chunks
+    of window groups."""
     wg = cfg.window_group
     _groups(pos.shape[0], cfg, grid)
-    outs = torch.zeros((3, pos.shape[0]), dtype=pos.dtype,
-                       device=pos.device)
-    for rows, idx, valid, off in _candidate_chunks(grid, wg, active):
+    offset, n_rows, slab = 0, pos.shape[0], None
+    if rows is not None:
+        offset, n_rows = rows
+        slab = _row_slab(pos.shape[0], cfg, offset, n_rows, active)
+    outs = torch.zeros((3, n_rows), dtype=pos.dtype, device=pos.device)
+    for rows, idx, valid, off in _candidate_chunks(grid, wg, active, slab):
         mask, dxx, dxy, dxz, r2 = _pair_geometry(pos, grid, rows, idx,
                                                  valid, off)
         gcoef = _grav_coef(r2, h[rows][:, :, None], m[idx][:, None, :],
                            mask, grav_split)
         for c, d in enumerate((dxx, dxy, dxz)):
-            outs[c, rows] = torch.sum(gcoef * d, dim=-1)
+            outs[c, rows - offset] = torch.sum(gcoef * d, dim=-1)
     return tuple(outs)
 
 
@@ -622,7 +740,8 @@ for _wrapper, _attr in launch_counters():
     setattr(_wrapper, _attr, 0)
 pack_force.launches = 0
 
-__all__ = ["density_sums", "density_sums_plain", "density", "force_sums",
+__all__ = ["density_sums", "density_sums_plain", "density", "forces",
+           "force_sums",
            "force_sums_plain", "pack_force", "pack_force_plain",
            "pack_geometry", "grav_short_sums", "grav_short_sums_plain",
            "pair_eval", "window_overflow", "launch_counters", "SOURCE"]

@@ -4,7 +4,9 @@ Counterpart of `summersph_tpu/ops/gravity.py`.  `gas_gravity_direct` is
 the exact oracle the TreePM path (`ops/pm_gravity.py`) is held against,
 and serves `gravity='direct'`: receiver-side spline softening f(r / h_i)
 within 2h, Newtonian outside, a pure r > 0 guard.  Sink gravity is direct
-and unsoftened.
+and unsoftened.  On several devices (`axis_name`, a `parallel.Mesh`) the
+rows are a rank's, the columns the gathered set, and the gas->sink pull
+is summed over the ranks.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import Particles, Sinks
+from ..parallel.comm import psum
 from ..utils.units import G
 from .kernels import grav_softening
 
@@ -23,32 +26,37 @@ from .kernels import grav_softening
 DIRECT_BUDGET = 1 << 22
 
 
-def gas_gravity_direct(p: Particles, cfg: SimConfig) -> torch.Tensor:
-    """Exact softened all-pairs gas-gas gravity, in blocks of rows; zero
-    on dead rows."""
-    cm = torch.where(p.alive, p.mass, 0.0)
-    acc = torch.empty_like(p.pos)
-    block = max(1, DIRECT_BUDGET // max(p.capacity, 1))
-    for r0 in range(0, p.capacity, block):
-        xi = p.pos[r0:r0 + block]
-        d = [xi[:, c:c + 1] - p.pos[None, :, c] for c in range(3)]
+def gas_gravity_direct(rows: Particles, cfg: SimConfig,
+                       cols: Particles | None = None) -> torch.Tensor:
+    """Exact softened gas-gas gravity on `rows` from every particle of
+    `cols` (the rows themselves by default), in blocks of rows; zero on
+    dead rows."""
+    cols = cols if cols is not None else rows
+    cm = torch.where(cols.alive, cols.mass, 0.0)
+    acc = torch.empty_like(rows.pos)
+    block = max(1, DIRECT_BUDGET // max(cols.capacity, 1))
+    for r0 in range(0, rows.capacity, block):
+        xi = rows.pos[r0:r0 + block]
+        d = [xi[:, c:c + 1] - cols.pos[None, :, c] for c in range(3)]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         r = torch.sqrt(r2)
         valid = r > 0.0
-        f = grav_softening(r, p.h[r0:r0 + block, None])
+        f = grav_softening(r, rows.h[r0:r0 + block, None])
         inv_r3 = torch.where(valid, 1.0 / torch.where(valid, r2 * r, 1.0),
                              0.0)
         coef = -G * cm[None, :] * f * inv_r3
         acc[r0:r0 + block] = torch.stack(
             [torch.sum(coef * d[c], dim=-1) for c in range(3)], dim=-1)
-    return torch.where(p.alive[:, None], acc, 0.0)
+    return torch.where(rows.alive[:, None], acc, 0.0)
 
 
-def sink_gravity(p: Particles,
-                 s: Sinks) -> Tuple[torch.Tensor, torch.Tensor]:
+def sink_gravity(p: Particles, s: Sinks, axis_name=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(acc_gas [N, 3], acc_sink [S, 3]); masked pairs and coincident
     points contribute zero.  [S, N] per-component layout, no [N, S, 3]
-    intermediate."""
+    intermediate.  With `axis_name` `p` is a rank's rows, and the gas's
+    pull on the sinks is summed over the ranks (the sink<->sink part is
+    replicated and is not)."""
     dxc = [s.pos[:, c][:, None] - p.pos[:, c][None, :] for c in range(3)]
     r2 = dxc[0] * dxc[0] + dxc[1] * dxc[1] + dxc[2] * dxc[2]
     valid = p.alive[None, :] & s.alive[:, None] & (r2 > 0.0)
@@ -61,6 +69,8 @@ def sink_gravity(p: Particles,
                            for c in range(3)], dim=-1)
     acc_sink = torch.stack([-torch.sum(wm_p * dxc[c], dim=1)
                             for c in range(3)], dim=-1)
+    if axis_name is not None:
+        acc_sink = psum(acc_sink, axis_name)
 
     ds = s.pos[:, None, :] - s.pos[None, :, :]                 # [S, S, 3]
     r2s = torch.sum(ds * ds, dim=-1)

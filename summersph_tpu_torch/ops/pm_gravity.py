@@ -19,9 +19,17 @@ the method:
   (`ops/cuda_pairs.grav_short_sums`).
 
 The mesh is rebuilt from the particles every solve; r_s and r_cut are 0-d
-tensors, so nothing in a solve waits for the card.  Single device only:
-the JAX package's `rows`/`axis_name`/`decomp` branches are later work.
-`grav_fft='matmul'` (the TPU's pruned matmul DFT) is accepted as another
+tensors, so nothing in a solve waits for the card.
+
+On several devices (gather mode: `rows` = (p_rows, offset) and
+`axis_name`, a `parallel.Mesh`) `p` is the replicated full set, which
+sizes the mesh box and is gravity-sorted on every rank alike; each rank
+deposits its own rows and the mesh is summed over the ranks, each rank
+sums the short range of its 1/D slab of the gravity-sorted rows (the
+`grav_short_rows` kernel: a work split, not the caller's rows), scatters
+them to p's order, and the [N, 3] partial forces are summed over the
+ranks before the caller's rows are sliced out.  The slab decomposition's
+`decomp` branches are not ported.  `grav_fft='matmul'` (the TPU's pruned matmul DFT) is accepted as another
 name for the one `torch.fft` path.  The short-range kernel walks every
 window group's whole candidate range, so the JAX package's overflow
 worklist (`grav_overflow_items`) has nothing left to cover: the knob is
@@ -37,6 +45,7 @@ from typing import Optional
 import torch
 
 from ..config import SimConfig
+from ..parallel.comm import axis_index, psum
 from ..state import Particles
 from ..utils.units import G, PI
 from .cuda_pairs import grav_short_sums
@@ -167,11 +176,13 @@ def pm_geometry(p: Particles, cfg: SimConfig):
     return origin, cell, cfg.grav_split_rs * cell
 
 
-def pm_long_range(p: Particles, cfg: SimConfig):
+def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None):
     """Gaussian-filtered long-range gravitational acceleration (CIC-PM).
     Returns (acc [N, 3], origin, cell, r_s); r_s is the split scale the
     short-range pass must complement.  Each call is one solve, counted in
-    `pm_long_range.solves`."""
+    `pm_long_range.solves`.  With `rows` = (p_rows, offset) and
+    `axis_name` the box comes from the full set `p`, this rank deposits
+    p_rows, the mesh is summed over the ranks, and acc is p_rows's."""
     if cfg.grav_fft == "matmul" and cfg.grav_gradient != "fd":
         raise ValueError("grav_fft='matmul' implements the 'fd' gradient "
                          "only (set grav_gradient='fd' or grav_fft='xla')")
@@ -180,9 +191,13 @@ def pm_long_range(p: Particles, cfg: SimConfig):
     dtype, dev = p.pos.dtype, p.pos.device
     origin, cell, r_s = pm_geometry(p, cfg)
 
-    m = torch.where(p.alive, p.mass, 0.0)
+    p_dep = p if rows is None else rows[0]
+    m = torch.where(p_dep.alive, p_dep.mass, 0.0)
+    rho = _cic_deposit(p_dep.pos, m, origin, cell, n) / cell ** 3
+    if axis_name is not None:
+        rho = psum(rho, axis_name)
     rho_pad = torch.zeros((npad, npad, npad), dtype=dtype, device=dev)
-    rho_pad[:n, :n, :n] = _cic_deposit(p.pos, m, origin, cell, n) / cell ** 3
+    rho_pad[:n, :n, :n] = rho
     rho_k = torch.fft.rfftn(rho_pad)
     del rho_pad
     # the table is K / cell in cell units; the DFT -> integral volume
@@ -201,10 +216,10 @@ def pm_long_range(p: Particles, cfg: SimConfig):
     del phi_k
     force = torch.stack([g[:n, :n, :n] for g in grads], dim=-1)
     del grads
-    acc = _cic_gather(force, p.pos, origin, cell, n)
+    acc = _cic_gather(force, p_dep.pos, origin, cell, n)
     pm_long_range.solves += 1
-    return (torch.where(p.alive[:, None], acc.to(dtype), 0.0), origin, cell,
-            r_s)
+    return (torch.where(p_dep.alive[:, None], acc.to(dtype), 0.0), origin,
+            cell, r_s)
 
 
 pm_long_range.solves = 0
@@ -267,7 +282,8 @@ def gravity_sort(p: Particles, cfg: SimConfig, r_s):
             padded(p.h, 1.0)[perm], grid, perm, (r_s, r_cut))
 
 
-def pm_short_range(p: Particles, cfg: SimConfig, r_s, active_rows=None):
+def pm_short_range(p: Particles, cfg: SimConfig, r_s, rows=None,
+                   axis_name=None, active_rows=None):
     """Direct complementary pair force within r_cut = effective_rcut_rs *
     r_s: the slim gravity sort (`gravity_sort`), the `grav_short` kernel
     (its plain version on the CPU) and a scatter back to p's order.  `p`
@@ -275,31 +291,56 @@ def pm_short_range(p: Particles, cfg: SimConfig, r_s, active_rows=None):
     n_window_overflow), the count always 0: the kernel covers every
     group's whole candidate range.
 
-    `active_rows` [N] bool (block timesteps) rides the gravity sort; a
-    worklist over the window groups of that order, not of p's, gates the
-    kernel (`grav_short_gated`), and inactive rows return exactly 0."""
+    With `rows` = (p_rows, offset) and `axis_name` (gather mode) this rank
+    sums its 1/D slab of the gravity-sorted rows (`grav_short_rows`), the
+    scattered partial forces are summed over the ranks, and acc is the
+    rows [offset, offset + p_rows.capacity) of p's order.
+
+    `active_rows` [N] bool (block timesteps, one device) rides the gravity
+    sort; a worklist over the window groups of that order, not of p's,
+    gates the kernel (`grav_short_gated`), and inactive rows return
+    exactly 0."""
+    if active_rows is not None and rows is not None:
+        raise ValueError("pm_short_range: active_rows gating is "
+                         "single-device")
     pos_s, m_s, h_s, grid, perm, split = gravity_sort(p, cfg, r_s)
-    gate = act_s = None
+    cap = perm.shape[0]
+    gate = act_s = slab = None
+    off_g, nloc = 0, cap
     if active_rows is not None:
-        pad = active_rows.new_zeros(perm.shape[0] - p.capacity)
+        pad = active_rows.new_zeros(cap - p.capacity)
         act_s = torch.cat([active_rows, pad])[perm]
         gate = group_worklist(act_s, cfg.window_group)
-    acc_s = torch.stack(
-        grav_short_sums(pos_s, m_s, h_s, grid, cfg, split, gate), dim=-1)
+    if rows is not None:
+        nloc = cap // (p.capacity // rows[0].capacity)
+        if nloc % cfg.window_group:
+            raise ValueError(
+                f"sharded PM gravity needs the padded capacity ({cap}) to "
+                f"split into window groups of {cfg.window_group} per rank")
+        off_g = axis_index(axis_name) * nloc
+        slab = (off_g, nloc)
+    acc_s = torch.stack(grav_short_sums(pos_s, m_s, h_s, grid, cfg, split,
+                                        gate, slab), dim=-1)
     if act_s is not None:
         acc_s = torch.where(act_s[:, None], acc_s, 0.0)
-    n0 = p.capacity
-    acc = torch.empty_like(p.pos)
-    acc[perm[:n0]] = acc_s[:n0].to(acc.dtype)
-    return (torch.where(p.alive[:, None], acc, 0.0),
-            torch.zeros((), dtype=torch.int32, device=p.pos.device))
+    # scatter to p's order; the pad rows of the sort land past p's rows
+    acc = p.pos.new_zeros((cap, 3))
+    acc[perm[off_g:off_g + nloc]] = acc_s.to(acc.dtype)
+    acc = acc[:p.capacity]
+    n_over = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    if rows is None:
+        return torch.where(p.alive[:, None], acc, 0.0), n_over
+    p_rows, offset = rows
+    acc = psum(acc, axis_name)[offset:offset + p_rows.capacity]
+    return torch.where(p_rows.alive[:, None], acc, 0.0), n_over
 
 
-def gas_gravity_pm(p: Particles, cfg: SimConfig):
-    """Full PM + short-range self-gravity.  Returns (acc, n_window_overflow
-    int32, always 0)."""
-    acc_long, _, _, r_s = pm_long_range(p, cfg)
-    acc_short, n_over = pm_short_range(p, cfg, r_s)
+def gas_gravity_pm(p: Particles, cfg: SimConfig, rows=None, axis_name=None):
+    """Full PM + short-range self-gravity; with `rows` and `axis_name` the
+    sharded form of both (see `pm_long_range`, `pm_short_range`).  Returns
+    (acc, n_window_overflow int32, always 0)."""
+    acc_long, _, _, r_s = pm_long_range(p, cfg, rows, axis_name)
+    acc_short, n_over = pm_short_range(p, cfg, r_s, rows, axis_name)
     return acc_long + acc_short, n_over
 
 
@@ -319,33 +360,36 @@ def recompute_far_field(pm_phase: Optional[int], r_s_held,
 
 
 def pm_long_range_held(p: Particles, cfg: SimConfig, pm_phase, r_s_held,
-                       held_valid: bool = False):
+                       held_valid: bool = False, rows=None, axis_name=None):
     """The far-field half of `gas_gravity_pm_held` alone (cfg.grav_fuse_short,
     whose short-range complement runs inside the force kernel).  Returns
     (acc_long, r_s): the held p.acc_ext and r_s_held on held steps, a fresh
-    solve otherwise (always when p carries no acc_ext)."""
-    if p.acc_ext is not None and not recompute_far_field(
+    solve otherwise (always when p carries no acc_ext).  With `rows` the
+    held force is p_rows's (see `pm_long_range`)."""
+    p_dep = p if rows is None else rows[0]
+    if p_dep.acc_ext is not None and not recompute_far_field(
             pm_phase, r_s_held, held_valid):
-        return p.acc_ext, r_s_held.to(p.pos.dtype)
-    acc_long, _, _, r_s = pm_long_range(p, cfg)
+        return p_dep.acc_ext, r_s_held.to(p.pos.dtype)
+    acc_long, _, _, r_s = pm_long_range(p, cfg, rows, axis_name)
     return acc_long, r_s
 
 
 def gas_gravity_pm_held(p: Particles, cfg: SimConfig, pm_phase, r_s_held,
-                        held_valid: bool = False):
+                        held_valid: bool = False, rows=None, axis_name=None):
     """PM self-gravity with the long-range force recomputed every
     cfg.pm_every-th step and held in between (`recompute_far_field`
     decides on the host); the short-range complement runs every step at
     the split scale the far field was built with.  Returns (acc,
     n_window_overflow, acc_long, r_s); the caller stores acc_long in
-    p.acc_ext and r_s in SimState.pm_r_s."""
-    if p.acc_ext is None:
+    p.acc_ext and r_s in SimState.pm_r_s.  With `rows` and `axis_name`
+    the sharded form (see `pm_long_range`, `pm_short_range`)."""
+    if (p if rows is None else rows[0]).acc_ext is None:
         raise ValueError(
             "gas_gravity_pm_held needs particles.acc_ext (call "
             "integrate.init_carries / prime with cfg.pm_every > 1 first)")
     acc_long, r_s = pm_long_range_held(p, cfg, pm_phase, r_s_held,
-                                       held_valid)
-    acc_short, n_over = pm_short_range(p, cfg, r_s)
+                                       held_valid, rows, axis_name)
+    acc_short, n_over = pm_short_range(p, cfg, r_s, rows, axis_name)
     return acc_long + acc_short, n_over, acc_long, r_s
 
 

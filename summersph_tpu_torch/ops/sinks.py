@@ -11,7 +11,11 @@ corrections of the reference, all kept here:
   conserving mass, momentum and angular momentum.
 
 Every function is a masked tensor op over the fixed capacities, with no
-device read: [S, N] for the gas, [S, S] for the sinks.
+device read: [S, N] for the gas, [S, S] for the sinks.  On several devices
+(`axis_name`, a `parallel.Mesh`) the gas is a rank's rows and the sinks
+are replicated: accretion sums its per-sink sums over the ranks, creation
+takes the densest candidate of all ranks, and merging, which reads the
+sinks only, needs no collective.
 """
 
 from __future__ import annotations
@@ -21,17 +25,22 @@ from typing import Tuple
 import torch
 
 from ..config import SimConfig
+from ..parallel.comm import all_gather_tiled, psum
 from ..state import PARK_POSITION, Particles, Sinks
 
 
-def accrete(p: Particles, s: Sinks) -> Tuple[Particles, Sinks]:
+def accrete(p: Particles, s: Sinks,
+            axis_name=None) -> Tuple[Particles, Sinks]:
     """Sinks absorb the live gas inside their accretion radius.
 
     Conserves mass, momentum and angular momentum: each particle goes to
     its nearest eligible sink, the sink moves to the combined centre of
     mass with the combined momentum, and the gas's angular momentum about
     the old sink frame adds to `spin`.  Accreted slots die and are parked.
-    [S, N] layout with masked reductions, no scatter.
+    [S, N] layout with masked reductions, no scatter.  With `axis_name`
+    the per-sink sums (mass, momentum, mass-weighted position, angular
+    momentum) are summed over the ranks in one collective of one [S, 10]
+    buffer.
     """
     S = s.capacity
     d2 = torch.zeros((S, p.capacity), dtype=p.pos.dtype, device=p.pos.device)
@@ -56,8 +65,8 @@ def accrete(p: Particles, s: Sinks) -> Tuple[Particles, Sinks]:
 
     px = [p.pos[:, c] for c in range(3)]
     vx = [p.vel[:, c] for c in range(3)]
-    psum = torch.stack([torch.sum(w * vx[c][None, :], dim=1)
-                        for c in range(3)], dim=-1)
+    psum_ = torch.stack([torch.sum(w * vx[c][None, :], dim=1)
+                         for c in range(3)], dim=-1)
     xsum = torch.stack([torch.sum(w * px[c][None, :], dim=1)
                         for c in range(3)], dim=-1)
     rx = [px[c] - sink_field_at_gas(s.pos[:, c]) for c in range(3)]
@@ -67,6 +76,11 @@ def accrete(p: Particles, s: Sinks) -> Tuple[Particles, Sinks]:
              rx[0] * rv[1] - rx[1] * rv[0])
     lsum = torch.stack([torch.sum(w * cross[c][None, :], dim=1)
                         for c in range(3)], dim=-1)
+    if axis_name is not None:
+        sums = psum(torch.cat([msum[:, None], psum_, xsum, lsum], dim=1),
+                    axis_name)
+        msum, psum_, xsum, lsum = sums[:, 0], sums[:, 1:4], sums[:, 4:7], \
+            sums[:, 7:]
 
     new_mass = s.mass + msum
     grew = msum > 0.0
@@ -75,7 +89,7 @@ def accrete(p: Particles, s: Sinks) -> Tuple[Particles, Sinks]:
                           (s.mass[:, None] * s.pos + xsum) * inv[:, None],
                           s.pos)
     new_vel = torch.where(grew[:, None],
-                          (s.mass[:, None] * s.vel + psum) * inv[:, None],
+                          (s.mass[:, None] * s.vel + psum_) * inv[:, None],
                           s.vel)
 
     s = s.replace(mass=new_mass, pos=new_pos, vel=new_vel,
@@ -88,8 +102,8 @@ def accrete(p: Particles, s: Sinks) -> Tuple[Particles, Sinks]:
     return p, s
 
 
-def create_sinks(p: Particles, s: Sinks,
-                 cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
+def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
+                 axis_name=None) -> Tuple[Sinks, torch.Tensor]:
     """Spawn a sink at the densest eligible particle, if any.
 
     Eligible: live, code density m (eta / h)^3 above
@@ -98,7 +112,10 @@ def create_sinks(p: Particles, s: Sinks,
     particle's position and velocity, radius 2 h and mass
     `cfg.sink_create_mass`; the particle itself stays alive for the next
     accretion pass.  Returns (sinks, slots_full), slots_full int32 1 when
-    a candidate found no free slot.
+    a candidate found no free slot.  With `axis_name` every rank's best
+    candidate (its density, position, velocity and h: one [8] row) is
+    gathered and every rank takes the first densest, as `jnp.argmax` over
+    the gathered values does, so ties go to the lowest rank.
     """
     S = s.capacity
     code_density = p.mass * (cfg.eta / p.h) ** 3
@@ -119,6 +136,17 @@ def create_sinks(p: Particles, s: Sinks,
     cand_pos = torch.index_select(p.pos, 0, best)[0]
     cand_vel = torch.index_select(p.vel, 0, best)[0]
     cand_h = torch.index_select(p.h, 0, best)[0]
+    if axis_name is not None:
+        best_val = torch.where(has_any, torch.index_select(
+            code_density, 0, best)[0], -torch.inf)
+        cand = all_gather_tiled(torch.cat([best_val[None], cand_pos,
+                                           cand_vel, cand_h[None]]),
+                                axis_name).reshape(-1, 8)
+        # index_select: a 0-d tensor index would read it on the host
+        win = torch.index_select(cand, 0,
+                                 torch.argmax(cand[:, 0]).reshape(1))[0]
+        has_any = torch.isfinite(win[0])
+        cand_pos, cand_vel, cand_h = win[1:4], win[4:7], win[7]
 
     free = ~s.alive
     has_slot = torch.any(free)

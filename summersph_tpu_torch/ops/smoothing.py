@@ -23,7 +23,21 @@ act_mask, and `active` = (worklist, count) gates the re-sums to the window
 groups that hold such a row (`density_var_h_gated`); the caller takes h
 alone from the result.  h_cap = min(max_length, cell / 2) keeps every
 neighbour inside the sort's +-1-cell stencil, whose cells carry the
-`cfg.sort_h_pad` headroom.
+`sorted_grid.sort_h_pad` headroom: `cfg.sort_h_pad`, or under
+neighbor_mode='grid' the 1.25 of the JAX package's hashed grid, so that
+'grid' caps h where the JAX 'grid' engine does.
+
+On several devices (gather mode) a rank iterates its own rows, a slab of
+the step's sorted order, and re-sums them against the gathered columns
+with the row-slab form of the density kernel (`density_var_h_rows`): only
+the rows' h changes, and rho_i depends on h_i alone, so the columns stay
+valid through the iteration.  The dense engine (`neighbor_mode='dense'`)
+re-sums every iteration with the dense pass (`ops/density.py`), rows
+against the columns (the gathered set on several devices), and caps h at
+min(max_length, 1.25 h_max) over the live columns: half the cell of the
+hashed grid that the JAX package builds over h x 1.25 for it
+(`GRID_H_HEADROOM`).  The slab
+decomposition's separate row set (`key_rows`) is not ported.
 
 Returns (particles, n_unconverged): the live particles whose last
 unclamped step still exceeded `cfg.convergence_criteria`, the
@@ -35,9 +49,12 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig
+from ..parallel.comm import axis_index
 from ..state import Particles
 from .cuda_pairs import density
-from .sorted_grid import SORTED_MODES, SortedGrid, sort_particles
+from .density import compute_density
+from .sorted_grid import (GRID_H_HEADROOM, SORTED_MODES, SortedGrid,
+                          sort_h_pad, sort_particles)
 
 
 def _newton(h, rho, omega, m, eta):
@@ -78,25 +95,48 @@ def _h_cap(cfg: SimConfig, grid: SortedGrid) -> torch.Tensor:
 
 
 def _update_smoothing_shared(p: Particles, cfg: SimConfig,
-                             grid: SortedGrid, active=None, act_mask=None):
+                             grid: SortedGrid, cols=None, offset=None,
+                             active=None, act_mask=None):
     """The in-step path: `p` is in the sorted order of the step's `grid`
     with rho/Omega fresh from its force pass.  No sort; the first update
     reuses that density.  With `active` and `act_mask` the returned
-    rho/Omega mean something on the active rows only."""
+    rho/Omega mean something on the active rows only.  With `cols` and
+    `offset` (gather mode) `p` is the slab of the sorted set `cols` from
+    row `offset` on."""
     vcfg = cfg.with_(fixed_h=None)
-    return _newton_scan(
-        p, cfg, lambda q: density(q, vcfg, grid, active, act_mask),
-        _h_cap(cfg, grid), resum_first=False, act_mask=act_mask)
+    if cols is None:
+        def dens(q):
+            return density(q, vcfg, grid, active, act_mask)
+    else:
+        def dens(q):
+            return density(cols, vcfg, grid, rows=(q, offset))
+    return _newton_scan(p, cfg, dens, _h_cap(cfg, grid), resum_first=False,
+                        act_mask=act_mask)
+
+
+def _update_smoothing_dense(p: Particles, cfg: SimConfig, cols=None):
+    """The dense engine's iteration: every iteration re-sums rows `p`
+    against `cols` (p itself by default), with h capped at half the cell
+    of the JAX package's hashed grid over h x GRID_H_HEADROOM."""
+    cols = cols if cols is not None else p
+    h_max = torch.amax(torch.where(cols.alive, cols.h * GRID_H_HEADROOM,
+                                   0.0))
+    cell = torch.clamp(2.0 * h_max, min=1.0e-12)
+    vcfg = cfg.with_(fixed_h=None)
+    return _newton_scan(p, cfg, lambda q: compute_density(q, vcfg, cols=cols),
+                        torch.clamp(cell / 2.0, max=cfg.max_length),
+                        resum_first=True)
 
 
 def _update_smoothing_sorted(p: Particles, cfg: SimConfig):
-    """The standalone path (cold starts, tests): one sort with
-    max(sort_h_pad, 1.25) headroom, the iteration with a first re-sum, and
-    a closing re-sum so rho/Omega match the returned h.  The particles come
+    """The standalone path (cold starts, tests): one sort with at least
+    GRID_H_HEADROOM headroom, the iteration with a first re-sum, and a
+    closing re-sum so rho/Omega match the returned h.  The particles come
     back in sorted order, cut to their capacity."""
     cap0 = p.capacity
     vcfg = cfg.with_(fixed_h=None)
-    p2, grid = sort_particles(p, cfg, h_pad=max(cfg.sort_h_pad, 1.25))
+    p2, grid = sort_particles(p, cfg, h_pad=max(sort_h_pad(vcfg),
+                                                GRID_H_HEADROOM))
 
     def dens(q):
         return density(q, vcfg, grid)
@@ -115,25 +155,31 @@ def update_smoothing(p: Particles, cfg: SimConfig, cols=None, grid=None,
     """Newton-iterate h on `p`.  With the step's sorted `grid` (and `p` in
     its order with fresh rho/Omega) the shared path, on which `active` =
     (worklist, count) and `act_mask` restrict the iteration to a
-    block-timestep substep's active rows; without a grid the standalone
-    sorted path.  Returns (particles, n_unconverged int32).
-    'grid' runs on the sorted engine, as in `integrate`.  The sharded
-    (`cols`, `key_rows`, `axis_name`) and the dense engine are not ported
-    and raise NotImplementedError."""
-    if cols is not None or key_rows is not None or axis_name is not None:
+    block-timestep substep's active rows, and with `cols` and `axis_name`
+    (a `parallel.Mesh`) `p` is this rank's slab of the sorted set `cols`;
+    without a grid the standalone sorted path, or with `cols` or
+    neighbor_mode='dense' the dense one.  'grid' runs on the sorted
+    engine, as in `integrate`.  The slab decomposition (`key_rows`) raises
+    NotImplementedError.  Returns (particles, n_unconverged int32)."""
+    if key_rows is not None:
         raise NotImplementedError(
-            "update_smoothing: multi-device runs (cols/key_rows/axis_name) "
-            "are not ported to summersph_tpu_torch yet")
-    if cfg.neighbor_mode not in SORTED_MODES:
-        raise NotImplementedError(
-            f"update_smoothing: neighbor_mode={cfg.neighbor_mode!r} is not "
-            f"ported (only 'sorted' and 'grid')")
-    if grid is not None:
-        return _update_smoothing_shared(p, cfg, grid, active, act_mask)
-    if active is not None or act_mask is not None:
+            "update_smoothing: the slab decomposition (key_rows) is not "
+            "ported to summersph_tpu_torch yet")
+    if (active is not None or act_mask is not None) and (
+            grid is None or cols is not None):
         raise ValueError("update_smoothing: active/act_mask need the "
-                         "step's sorted grid")
-    return _update_smoothing_sorted(p, cfg)
+                         "step's sorted grid on one device")
+    sorted_mode = cfg.neighbor_mode in SORTED_MODES
+    if sorted_mode and grid is not None:
+        if cols is None:
+            return _update_smoothing_shared(p, cfg, grid, active=active,
+                                            act_mask=act_mask)
+        return _update_smoothing_shared(
+            p, cfg, grid, cols=cols,
+            offset=axis_index(axis_name) * p.capacity)
+    if sorted_mode and cols is None:
+        return _update_smoothing_sorted(p, cfg)
+    return _update_smoothing_dense(p, cfg, cols)
 
 
 __all__ = ["update_smoothing"]

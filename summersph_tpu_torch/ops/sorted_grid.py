@@ -48,6 +48,22 @@ LANES = 128  # the padding granule (with cfg.sorted_block)
 # hashed grid, a workaround for TPU gathers) sums the same pairs
 SORTED_MODES = ("sorted", "grid")
 
+# The headroom over h of the JAX package's hashed grid, which its
+# h-iteration builds over h x 1.25 and whose half cell caps h there.
+GRID_H_HEADROOM = 1.25
+
+
+def sort_h_pad(cfg: SimConfig) -> float:
+    """The cell headroom of a step's sort, whose half cell caps the
+    h-iteration: none with fixed h; with variable h `cfg.sort_h_pad`, and
+    under neighbor_mode='grid' GRID_H_HEADROOM, so that h is capped at
+    min(max_length, 1.25 h_max) as on the JAX package's hashed grid."""
+    if cfg.fixed_h is not None:
+        return 1.0
+    if cfg.neighbor_mode == "grid":
+        return GRID_H_HEADROOM
+    return cfg.sort_h_pad
+
 
 @functools.cache
 def _plane_offsets(device: torch.device) -> torch.Tensor:
@@ -210,4 +226,5 @@ def group_worklist(act: torch.Tensor, block: int):
 
 __all__ = ["SortedGrid", "sort_particles", "group_windows",
            "group_worklist", "PLANE_OFFSETS",
-           "SENTINEL_KEY", "WINDOW", "WINDOW_BITS", "LANES", "SORTED_MODES"]
+           "SENTINEL_KEY", "WINDOW", "WINDOW_BITS", "LANES", "SORTED_MODES",
+           "GRID_H_HEADROOM", "sort_h_pad"]

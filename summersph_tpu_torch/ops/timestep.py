@@ -3,6 +3,7 @@
 and the collapse guard (`cfg.dt_bound_candidate`).
 
 `dt` stays a 0-d tensor on the device: nothing here waits for the card.
+On several devices the candidate's minimum is taken over the ranks.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig
+from ..parallel.comm import pmin
 from ..state import Particles
 
 
@@ -33,15 +35,20 @@ def dt_candidates(p: Particles, cfg: SimConfig) -> torch.Tensor:
 
 
 def next_timestep(p: Particles, dt: torch.Tensor, cfg: SimConfig,
-                  cand_scale: float = 1.0) -> torch.Tensor:
+                  axis_name=None, cand_scale: float = 1.0) -> torch.Tensor:
     """Grow x dt_grow when the candidate exceeds 2 dt (capped at dt_max),
     shrink x dt_shrink when below dt / 2 (floored at dt_min), then bound
     by the candidate itself unless cfg.dt_bound_candidate is off.
     `cand_scale` relaxes the candidate: with block timesteps the base step
     may exceed the tightest particle's candidate by 2^(dt_bins - 1),
-    because that particle steps on the deepest rung (blockstep.py)."""
+    because that particle steps on the deepest rung (blockstep.py).
+    With `axis_name` (a `parallel.Mesh`) `p` is a rank's rows and the
+    minimum is global."""
     cand = dt_candidates(p, cfg) / cfg.timestep_scale
-    dt_cand = torch.amin(cand) * cfg.timestep_scale * cand_scale
+    cand_min = torch.amin(cand)
+    if axis_name is not None:
+        cand_min = pmin(cand_min, axis_name)
+    dt_cand = cand_min * cfg.timestep_scale * cand_scale
     grown = torch.where((dt_cand > 2.0 * dt) & (cfg.dt_grow * dt < cfg.dt_max),
                         cfg.dt_grow * dt, dt)
     shrunk = torch.where(

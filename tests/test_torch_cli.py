@@ -1,7 +1,8 @@
 """The port's command line, tools and small models against the JAX
 package's: the argparse flags of `run`, `resume`, `make-ics` and `image`,
 the files `run` writes, `resume`'s config, the `make-ics` bytes, the
-density grid, the Sod and ring models and the Sod L2 on the sorted engine.
+density grid, the Sod and ring models and the Sod L2 on the sorted engine;
+and `run --neighbor-mode dense` against the sorted engine's run.
 """
 
 import argparse
@@ -132,6 +133,24 @@ def test_run_writes_the_files_jax_writes(runs):
     oo, ot = np.argsort(po["pid"]), np.argsort(pt["pid"])
     for name in ("pos", "vel", "u", "rho", "acc"):
         _hold_f32(po[name][oo], pt[name][ot], name)
+
+
+def test_run_dense_matches_the_sorted_run(runs):
+    """`run --neighbor-mode dense` (the O(N^2) engine) on the same file
+    gives the snapshot of `run --neighbor-mode sorted`, rows matched by
+    sorting them (the snapshots carry no pid)."""
+    root = runs[0]
+    flags = ["--ic", str(root / "disc.txt"), "--fixed-h", str(H_IC),
+             "--end-time", "0.02", "--n-saves", "2", "--set",
+             "dt_init=1e-4", "--set", "dt_max=2e-3", "--device", "cpu"]
+    for mode in ("sorted", "dense"):
+        assert tcli.main(["run", *flags, "--neighbor-mode", mode, "--out",
+                          str(root / mode)]) == 0
+    for name in ("save0.txt", "save1.txt"):
+        ours, theirs = _rows(root / "dense" / name), _rows(root / "sorted"
+                                                           / name)
+        assert ours.shape == theirs.shape == (N_IC + 1, 9)
+        _hold_f32(ours, theirs, name)
 
 
 def test_resume_overrides_only_the_flags_given(runs):

@@ -314,8 +314,14 @@ def test_grid_mode_keeps_the_jax_value_errors(change):
 
 
 def test_dense_mode_still_raises():
+    """The dense engine runs (tests/test_torch_dense.py); it still raises
+    where the JAX package raises: the held far field (pm_every > 1) and
+    block timesteps need the sorted engine."""
     cfg = SimConfig(**_cfg_kwargs(neighbor_mode="dense", dtype="float32"))
     st = _ic(disc_ic, cfg)
-    with pytest.raises(NotImplementedError):
-        tint.prime(st, cfg)
+    with pytest.raises(ValueError):
+        tint.prime(st, cfg.with_(gravity="pm", pm_every=2))
+    binned = cfg.with_(dt_bins=2)
+    with pytest.raises(ValueError):
+        tint.run_steps(tint.prime(st, binned), binned, 1)
     assert tint.check_coverage(st, cfg) == 0

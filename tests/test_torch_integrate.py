@@ -26,6 +26,7 @@ from summersph_tpu_torch.integrate import (check_health, prime, run_steps,
 from summersph_tpu_torch.models.disc import disc_ic
 
 from test_torch_config_state import jax_state_dict
+from test_torch_sharded import one_rank_mesh  # noqa: F401 (a fixture)
 
 N = 2048
 H0 = 100.0 * (60.0 / N) ** (1.0 / 3.0) / 2.0   # bench.py's h0 formula
@@ -116,25 +117,30 @@ def test_health_and_diagnostics_after_ten_steps(runs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(fixed_h=None, dt_bins=2, neighbor_mode="dense"),
-    dict(fixed_h=None, neighbor_mode="dense"),
-    dict(dt_bins=2, neighbor_mode="dense"),
-    dict(gravity="pm", dt_bins=2, neighbor_mode="dense"),
-    dict(gravity="pm", neighbor_mode="dense"), dict(neighbor_mode="dense"),
-    dict(sink_merge_factor=1.0, neighbor_mode="dense")])
-def test_unported_configurations_raise(change):
-    """The dense engine is not ported, with block timesteps (dt_bins > 1,
-    which the sorted engine runs) as without.  ('grid' runs on the sorted
-    engine: tests/test_torch_driver.py.)"""
+    dict(decomp="slab"), dict(decomp="slab", fixed_h=None),
+    dict(decomp="slab", neighbor_mode="dense"), dict(dt_bins=2),
+    dict(dt_bins=2, fixed_h=None), dict(dt_bins=2, gravity="pm"),
+    dict(decomp="slab", dt_bins=2)])
+def test_unported_configurations_raise(change, one_rank_mesh):
+    """What the port still refuses: on a mesh (here of one gloo rank), the
+    slab decomposition and block timesteps.  One device runs every
+    configuration, the dense engine included (tests/test_torch_dense.py);
+    gather mode runs on several (tests/test_torch_sharded.py)."""
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     st = _ic(disc_ic, cfg)
     with pytest.raises(NotImplementedError):
-        prime(st, cfg.with_(**change))
+        step(st, cfg.with_(**change), axis_name=one_rank_mesh)
 
 
-def test_multi_device_raises():
+def test_multi_device_raises(one_rank_mesh):
+    """A step on a mesh with the slab decomposition raises
+    NotImplementedError; the JAX package's axis names (strings) are no
+    mesh in the port."""
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     with pytest.raises(NotImplementedError):
+        step(_ic(disc_ic, cfg), cfg.with_(decomp="slab"),
+             axis_name=one_rank_mesh)
+    with pytest.raises(TypeError):
         step(_ic(disc_ic, cfg), cfg, axis_name="dp")
 
 

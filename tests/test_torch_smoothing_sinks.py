@@ -107,13 +107,17 @@ def test_standalone_h_iteration_matches_jax():
 
 
 def test_update_smoothing_refuses_unported_paths():
+    """The slab decomposition's separate row set (key_rows) is not
+    ported; a neighbour pool without a grid (cols) is the dense path, as
+    neighbor_mode='dense' is."""
     cfg = SimConfig(**_kw())
     p = port_particles(_off_target_lattice())
-    for kw in (dict(cols=p), dict(axis_name="dp"), dict(key_rows=p.pid)):
-        with pytest.raises(NotImplementedError):
-            smoothing.update_smoothing(p, cfg, **kw)
     with pytest.raises(NotImplementedError):
-        smoothing.update_smoothing(p, cfg.with_(neighbor_mode="dense"))
+        smoothing.update_smoothing(p, cfg, key_rows=p.pid)
+    out, n = smoothing.update_smoothing(p, cfg, cols=p)
+    ref, n_ref = smoothing.update_smoothing(
+        p, cfg.with_(neighbor_mode="dense"))
+    assert torch.equal(out.h, ref.h) and int(n) == int(n_ref)
     # 'grid' runs on the sorted engine: the same h, bit for bit
     out, n = smoothing.update_smoothing(p, cfg.with_(neighbor_mode="grid"))
     ref, n_ref = smoothing.update_smoothing(p, cfg)
