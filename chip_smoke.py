@@ -149,13 +149,39 @@ caught:
       (variable h; Omega and the forces against the dense pass in
       float64), then one `neighbor_mode='dense'` step of the disc against
       the sorted step, per pid; the dense passes' times;
+20. the slab decomposition (run after phase 19, before the results of
+   phase 18):
+   a. at D = 1 over NCCL at N = 1,048,576 (a process group from a
+      HashStore, destroyed after): the disc (fixed h, gravity none) and
+      config 5 with pm_every 1 (the JAX package refuses a held far field
+      under slab) and cell_h_quantile 1 (at its 0.9 the slab's histogram
+      quantile and the one-device sort's exact one give other cells),
+      each with decomp='slab' through make_sharded_prime and
+      make_sharded_run_steps (prime + SLAB_HOLD + SLAB_TIMED steps): the
+      launches by form (the key_rows form of the four `_rows` SPH
+      entry points, `grav_short` whole on the local set, the mesh solves
+      all through the pencil solve), no other pair launch; the health
+      checks of phases 5 and 11, decomp_pressure and nonfinite 0; the
+      state after prime + SLAB_HOLD steps held per pid against the one
+      device run at tests/test_decomp.py's tolerances; ms a step beside
+      one device and gather mode on the same state, the collectives'
+      result bytes a step, the peak device memory;
+   b. the key_rows kernels with real rims: the sorted end states of
+      phases 5 and 11 cut into 4 slabs in this process, no collective
+      (`parallel.decomp.slabs_in_process`), each with [left rim | own |
+      right rim] columns, the rim the smallest power of two from 8,192
+      rows up that leaves no row short (printed); every slab's key_rows
+      launch of the four instantiations held against its plain version
+      in float64 (`hold_exact`) and, per row, against the whole-set
+      launch; their summed time beside the plain version's;
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
    the rows and pairs of the listed groups only; for a row-slab form on
-   all the rows of its path, its whole form's on the same state; its
-   launches from phase 19b, its times from 19a) and, last,
-   {"ok": true, "device": ...}.
+   all the rows of its path, its whole form's on the same state; for a
+   key_rows form its whole form's pairs and the bytes of its rows and of
+   its rim-extended columns; its launches from phases 19b and 20a, its
+   times from 19a and 20b) and, last, {"ok": true, "device": ...}.
 
 For the pair kernels, which test every candidate of a row's windows and
 run the pair arithmetic on the survivors only, the kernel checks print the
@@ -191,6 +217,7 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 # pressure factor (16).
 OPS_DENSITY, OPS_FORCE, OPS_GRAV, OPS_GEOMETRY = 20, 64, 55, 11
 OPS_DENSITY_VAR, OPS_FORCE_VAR = 31, 80
+KEY_ROWS = " (key_rows)"   # the name suffix of a key_rows form
 KERNELS = {
     # name: (TPU kernel it replaces, bytes per row read and written)
     "density_fixed_h": ("summersph_tpu/ops/pallas_pairs.py:365", 24 + 4),
@@ -222,6 +249,17 @@ KERNELS.update({
         ("force_fixed_h", "summersph_tpu/ops/pallas_pairs.py:533"),
         ("force_var_h", "summersph_tpu/ops/pallas_pairs.py:533"),
         ("grav_short", "summersph_tpu/ops/pm_gravity.py:678"))})
+# the key_rows forms (the slab decomposition, `_row_slices` with
+# rows=(p_rows, key_rows) :530-532): the same entry points on a row set
+# apart from the columns, counted apart; bytes per own row as above, and
+# per column (rims included) its records: geo and m, or geo and attr
+KERNELS.update({
+    name + KEY_ROWS: ("summersph_tpu/ops/pallas_pairs.py:530",
+                      KERNELS[name][1])
+    for name in ("density_fixed_h_rows", "density_var_h_rows",
+                 "force_fixed_h_rows", "force_var_h_rows")})
+COLUMN_BYTES = {"density_fixed_h_rows": 20, "density_var_h_rows": 20,
+                "force_fixed_h_rows": 16 + 32, "force_var_h_rows": 16 + 64}
 # the force kernels' per-particle records (the TPU pack `_pack`), formed by
 # one kernel before every force launch; bytes with variable h
 KERNELS["pack_force"] = ("summersph_tpu/ops/pallas_pairs.py:94", 57 + 84)
@@ -234,9 +272,11 @@ def require(cond, msg):
 
 
 def kernel_name(wrapper, attr):
-    """The CUDA entry point a launch count of `cuda_pairs` belongs to."""
+    """The CUDA entry point a launch count of `cuda_pairs` belongs to, with
+    KEY_ROWS appended for a key_rows launch of a `_rows` entry point."""
     form = ("_gated" if "gated_" in attr else "") + (
-        "_rows" if "rows_" in attr else "")
+        "_rows" if "rows_" in attr else "") + (
+        KEY_ROWS if "key_rows_" in attr else "")
     if wrapper.__name__ == "grav_short_sums":
         return "grav_short" + form
     base = "density" if wrapper.__name__ == "density_sums" else "force"
@@ -251,6 +291,7 @@ def launch_counts():
               for w, a in cuda_pairs.launch_counters()}
     counts["pack_force"] = cuda_pairs.pack_force.launches
     counts["mesh solves"] = pm_gravity.pm_long_range.solves
+    counts["pencil solves"] = pm_gravity.pm_long_range.pencil_solves
     return counts
 
 
@@ -265,6 +306,7 @@ def reset_counts():
         setattr(wrapper, attr, 0)
     cuda_pairs.pack_force.launches = 0
     pm_gravity.pm_long_range.solves = 0
+    pm_gravity.pm_long_range.pencil_solves = 0
 
 
 def bench_config(n, gravity="none", grav_grid=128, pm_every=1):
@@ -466,6 +508,18 @@ def bound(name, n_rows, groups, ops, active=None):
             "bytes" if t_bytes > t_ops else "operations")
 
 
+def bound_key_rows(name, n_rows, n_cols, groups, ops):
+    """bound() of a key_rows launch: the rows' bytes as the whole form's,
+    each column's records (rims included) read once, the windows, and the
+    FP32 operations."""
+    base = name[:-len(KEY_ROWS)]
+    t_bytes = (KERNELS[name][1] * n_rows + COLUMN_BYTES[base] * n_cols
+               + 72 * groups) / PEAK_BYTES
+    t_ops = ops / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
 def tested_share(name, grid, wg, survivors, label, active=None):
     """Print what a kernel that tests every candidate and runs the pair
     arithmetic on the survivors had to do: the candidates each row tests
@@ -493,18 +547,30 @@ def twice_bitwise(name, call, label):
           flush=True)
 
 
+_PAIR_COUNTS = {}   # (id(p.pos), id(grid.key)) -> (pos, key, counts)
+
+
 def sph_pair_counts(p, grid, cfg, active=None):
     """(density pairs, force pairs) the sums need: inside 2h with fixed
     h; inside 2 h_i and inside 2 max(h_i, h_j) with variable h.  With
-    `active` those of the listed groups' rows."""
+    `active` those of the listed groups' rows.  The ungated counts are
+    kept with the arrays they were counted on, for the script's life
+    (phase 20b needs those of the states of phases 5 and 11 again)."""
     wg = cfg.window_group
+    key = (id(p.pos), id(grid.key))
+    if active is None and key in _PAIR_COUNTS:
+        return _PAIR_COUNTS[key][2]
     if cfg.fixed_h is not None:
         n = count_pairs(p.pos, grid, wg, 4.0 * cfg.fixed_h ** 2,
                         active=active)
-        return n, n
-    return (count_pairs(p.pos, grid, wg, 4.0, h=p.h, active=active),
-            count_pairs(p.pos, grid, wg, 4.0, h=p.h, both=True,
-                        active=active))
+        counts = (n, n)
+    else:
+        counts = (count_pairs(p.pos, grid, wg, 4.0, h=p.h, active=active),
+                  count_pairs(p.pos, grid, wg, 4.0, h=p.h, both=True,
+                              active=active))
+    if active is None:   # the arrays kept, so that no other takes the ids
+        _PAIR_COUNTS[key] = (p.pos, grid.key, counts)
+    return counts
 
 
 def density_bitwise(name, p_sorted, grid, cfg, label, active=None):
@@ -952,8 +1018,10 @@ def device_busy(state, cfg, steps, label):
 
 def require_packs(launches, label):
     """Every force launch, of whatever form, is preceded by one launch of
-    the `pack_force` kernel, and nothing else launches it."""
-    forces = sum(k for name, k in launches.items()
+    the `pack_force` kernel (a key_rows launch by two: the columns' and
+    the rows' records), and nothing else launches it."""
+    forces = sum(k * (2 if name.endswith(KEY_ROWS) else 1)
+                 for name, k in launches.items()
                  if name.startswith("force_"))
     require(launches["pack_force"] == forces,
             f"{label}: pack_force counted {launches['pack_force']}, force "
@@ -2177,6 +2245,233 @@ def sharded_phase(n, dev, steps_disc=4):
     return disc_l, c5_l
 
 
+# ----------------------------------------------- phase 20: slab decomposition
+
+SLAB_HOLD, SLAB_TIMED = 2, 4   # phase 20a: steps held per pid, steps timed
+# tests/test_decomp.py's tolerances (:150-162) for a slab run against one
+# device: rho, u, h and P; vel
+DECOMP_TOL = {"rho": (5e-6, 1e-12), "u": (5e-6, 1e-12), "h": (5e-6, 1e-12),
+              "pressure": (5e-6, 1e-12), "vel": (2e-4, 1e-5)}
+
+
+def hold_decomp(ours, ref, label):
+    """A slab run against the single-device run from the same state, per
+    pid, at tests/test_decomp.py's tolerances (and dt rtol 1e-6); prints
+    the largest relative difference of each field."""
+    import torch
+
+    a, b = by_pid(ours), by_pid(ref)
+    require(torch.equal(a.pid, b.pid) and torch.equal(a.alive, b.alive),
+            f"{label}: pids or alive masks differ")
+    live = b.alive
+    worst = {}
+    for name, (rtol, atol) in DECOMP_TOL.items():
+        x, y = getattr(a, name)[live], getattr(b, name)[live]
+        torch.testing.assert_close(x, y, rtol=rtol, atol=atol,
+                                   msg=f"{label}: {name}")
+        worst[name] = float(((x - y).abs() / y.abs().clamp(min=1e-30))
+                            .max())
+    torch.testing.assert_close(ours.dt, ref.dt, rtol=1e-6, atol=0.0,
+                               msg=f"{label}: dt")
+    print(f"[{label}] against one device, per pid: within tests/"
+          f"test_decomp.py's tolerances; largest relative differences "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+          flush=True)
+
+
+def slab_path(state, cfg, mesh, expect, label, check):
+    """One phase-20a path: decomp='slab' on `mesh` through
+    make_sharded_prime + make_sharded_run_steps(SLAB_HOLD) and
+    make_sharded_run_steps(SLAB_TIMED) timed, the counts against `expect`
+    (and every other pair kernel 0), `check` and the decomp and
+    non-finite slots on the gathered states, the held state against one
+    device per pid; then one device and gather mode timed alike from the
+    same state.  Returns the launch counts."""
+    import torch
+    from summersph_tpu_torch.integrate import init_carries, prime, run_steps
+    from summersph_tpu_torch.parallel import (comm, gather_state,
+                                              make_sharded_prime,
+                                              make_sharded_run_steps,
+                                              pad_state_to_devices,
+                                              shard_state)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / SLAB_TIMED
+
+    def sharded(c):
+        st = shard_state(pad_state_to_devices(
+            init_carries(state, c), mesh.size, max(c.sorted_block, 128)),
+            mesh)
+        held = make_sharded_run_steps(c, mesh, SLAB_HOLD)(
+            make_sharded_prime(c, mesh)(st))
+        run = make_sharded_run_steps(c, mesh, SLAB_TIMED)
+        return held, run
+
+    scfg = cfg.with_(decomp="slab")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    held, run = sharded(scfg)
+    comm.reset_result_bytes()
+    out, slab_s = timed(lambda: run(held))
+    launches = launch_counts()
+    moved = {k: v // SLAB_TIMED for k, v in comm.RESULT_BYTES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] slab mode on {mesh.size} rank(s), NCCL: "
+          f"{slab_s * 1e3:.3f} ms/step ({SLAB_TIMED} steps timed) launches "
+          f"{nonzero(launches)}; collective result bytes per step {moved}; "
+          f"peak device memory {peak:.3f} GiB", flush=True)
+    for name in list(KERNELS) + ["mesh solves", "pencil solves"]:
+        if name != "pack_force":
+            want = expect.get(name, 0)
+            require(launches[name] == want,
+                    f"{label}: {name} counted {launches[name]}, expected "
+                    f"{want}")
+    require_packs(launches, label)
+    held_g, out_g = gather_state(held, mesh), gather_state(out, mesh)
+    for st, what in ((held_g, "held"), (out_g, "timed")):
+        d = st.stats_dict()
+        require(d["decomp_pressure"] == 0 and d["nonfinite"] == 0,
+                f"{label} {what}: stats {d}")
+    check(state, held_g, out_g, label)
+    ref = run_steps(prime(init_carries(state, cfg), cfg), cfg, SLAB_HOLD)
+    hold_decomp(held_g, ref, label)
+    _, one_s = timed(lambda: run_steps(ref, cfg, SLAB_TIMED))
+    g_held, g_run = sharded(cfg.with_(decomp="gather"))
+    _, gather_s = timed(lambda: g_run(g_held))
+    print(f"[{label}] ms/step: slab {slab_s * 1e3:.3f}, one device "
+          f"{one_s * 1e3:.3f}, gather mode {gather_s * 1e3:.3f} (slab / one "
+          f"device {slab_s / one_s:.4f}x)", flush=True)
+    return launches
+
+
+def slab_phase(n, dev):
+    """Phase 20a: the slab decomposition on the card at D = 1 over NCCL,
+    the disc (fixed h, gravity none) and config 5 with pm_every 1 and
+    cell_h_quantile 1, at N = n, through `slab_path`.  The slab
+    decomposition takes its cell from a summed histogram's quantile, the
+    one-device sort from the exact one: at config 5's 0.9 the two cells
+    differ and so do the pairs the clamped rows lose, so the run that is
+    held against one device sizes its cell by h_max.  Returns (disc
+    launches, config 5 launches)."""
+    import torch.distributed as dist
+    from summersph_tpu_torch.parallel import make_mesh
+
+    evals = 1 + SLAB_HOLD + SLAB_TIMED
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1)
+        disc_l = slab_path(
+            *disc(n, dev), mesh,
+            {"density_fixed_h_rows" + KEY_ROWS: evals,
+             "force_fixed_h_rows" + KEY_ROWS: evals},
+            f"N={n} slab mode disc", check_run)
+        c5_l = slab_path(
+            *config5(n, dev, pm_every=1, cell_h_quantile=1.0), mesh,
+            {"density_var_h_rows" + KEY_ROWS: evals + 2 * (evals - 1),
+             "force_var_h_rows" + KEY_ROWS: evals, "grav_short": evals,
+             "mesh solves": evals, "pencil solves": evals},
+            f"N={n} slab mode config 5", check_collapse)
+    finally:
+        dist.destroy_process_group()
+    return disc_l, c5_l
+
+
+def key_rows_phase(disc_sorted, c5_sorted, label):
+    """Phase 20b: the four key_rows instantiations on the sorted end states
+    of phases 5 (the disc) and 11 (config 5), cut into SLABS in-process
+    slabs (`parallel.decomp.slabs_in_process`) with the smallest rim, a
+    power of two from 8,192 rows up, that leaves no row short.  Every
+    slab's launch is held against its plain version in float64
+    (`hold_exact`) and, per row, against the whole-set launch within
+    FORCE_ATOL_REL x max plus twice the whole launch's own error against
+    float64 (the slabs' float64 sums).  Returns {name: (err, ms of the
+    SLABS launches, the plain version's ms summed, bound_ms, bound_by)}."""
+    import torch
+    from summersph_tpu_torch.ops import cuda_pairs
+    from summersph_tpu_torch.parallel.decomp import slabs_in_process
+
+    out = {}
+    for which, (p2, grid, cfg) in (("disc", disc_sorted),
+                                   ("config 5", c5_sorted)):
+        var = cfg.fixed_h is None
+        tag = f"{label} {which}"
+        pd = cuda_pairs.pair_eval(p2, cfg, grid)[0]
+        h_pad = cfg.sort_h_pad if var else 1.0
+        halo = 8192
+        while True:
+            slabs = slabs_in_process(pd, grid, cfg, SLABS, halo, h_pad)
+            short = [int(sl[4]) for sl in slabs]
+            if not any(short) or halo >= p2.capacity:
+                break
+            halo *= 2
+        require(not any(short), f"{tag}: rows short of the rims {short}")
+        n_cols = sum(sl[2].capacity for sl in slabs)
+        print(f"[{tag}] {SLABS} slabs of {p2.capacity // SLABS} rows, rims "
+              f"of halo_rows {halo} each side: rim_short 0 on every slab; "
+              f"{n_cols} columns in all", flush=True)
+        n_dens, n_force = sph_pair_counts(p2, grid, cfg)
+        for kind in ("density", "force"):
+            name = (f"{kind}_{'var' if var else 'fixed'}_h_rows"
+                    + KEY_ROWS)
+            sums = (cuda_pairs.density_sums if kind == "density"
+                    else cuda_pairs.force_sums)
+            plain = (cuda_pairs.density_sums_plain if kind == "density"
+                     else cuda_pairs.force_sums_plain)
+            n_out = 1 if kind == "density" and not var else None
+
+            def launch(fn, sl, q=None):
+                key, own, cols = sl[0], sl[1], sl[2]
+                if q is not None:
+                    own, cols = f64(own), f64(cols)
+                return flat(fn(cols, cfg, sl[3], rows=(own, key)))[:n_out]
+
+            got = [launch(sums, sl) for sl in slabs]
+            pl, plain_ms = [], 0.0
+            for sl in slabs:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                pl.append(launch(plain, sl))
+                stop.record()
+                torch.cuda.synchronize()
+                plain_ms += start.elapsed_time(stop)
+            ex = [launch(plain, sl, 64) for sl in slabs]
+
+            def cat(parts):
+                return [torch.cat([q[c] for q in parts])
+                        for c in range(len(parts[0]))]
+
+            got, pl, ex = cat(got), cat(pl), cat(ex)
+            err = hold_exact(name, got, pl, ex, tag)
+            whole = flat(sums(pd, cfg, grid))[:n_out]
+            for c, (a, w, r) in enumerate(zip(got, whole, ex)):
+                tol = (FORCE_ATOL_REL * float(r.abs().max())
+                       + 2 * float((w.double() - r).abs().max()))
+                torch.testing.assert_close(
+                    a, w, rtol=FORCE_RTOL, atol=tol,
+                    msg=f"{name} output {c}: against the whole launch "
+                    f"({tag})")
+            ms = sum(cuda_ms(lambda sl=sl: launch(sums, sl), 10)
+                     for sl in slabs)
+            whole_ms = cuda_ms(lambda: sums(pd, cfg, grid), 10)
+            print(f"[{tag}] {name}: against the whole-set launch per row "
+                  f"within rtol {FORCE_RTOL:g}; {SLABS} slabs {ms:.4f} ms "
+                  f"against the whole launch {whole_ms:.4f} ms; plain "
+                  f"{plain_ms:.1f} ms; max_abs_err={err:.3e}", flush=True)
+            pairs = n_dens if kind == "density" else n_force
+            ops = pairs * ((OPS_DENSITY_VAR if var else OPS_DENSITY)
+                           if kind == "density"
+                           else (OPS_FORCE_VAR if var else OPS_FORCE))
+            out[name] = (err, ms, plain_ms) + bound_key_rows(
+                name, p2.capacity, n_cols, grid.starts.shape[0], ops)
+    return out
+
+
 def dense_phase(dev, n=DENSE_N):
     """Phase 19c: the dense O(N^2) oracle on the card.  On the disc (fixed
     h) and on config 5's collapse sphere after one h-iteration (variable
@@ -2504,12 +2799,19 @@ def main():
     # -- phase 19: gather mode and the dense engine
     results.update(row_slab_phase(slab_disc, slab_c5, slab_grav, results,
                                   f"N={n} row slabs"))
-    del slab_disc, slab_c5, slab_grav
+    del slab_grav
     phase_done("19a (N=1048576, row slabs)")
     disc_rows_launches, c5_rows_launches = sharded_phase(n, dev)
     phase_done("19b (N=1048576, gather mode)")
     dense_phase(dev)
     phase_done("19c (the dense oracle)")
+
+    # -- phase 20: the slab decomposition
+    disc_key_launches, c5_key_launches = slab_phase(n, dev)
+    phase_done("20a (N=1048576, slab mode)")
+    results.update(key_rows_phase(slab_disc, slab_c5, f"N={n} key_rows"))
+    del slab_disc, slab_c5
+    phase_done("20b (N=1048576, key_rows kernels)")
 
     # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],
@@ -2532,7 +2834,11 @@ def main():
             ("force_fixed_h_rows", disc_rows_launches),
             ("density_var_h_rows", c5_rows_launches),
             ("force_var_h_rows", c5_rows_launches),
-            ("grav_short_rows", c5_rows_launches)):
+            ("grav_short_rows", c5_rows_launches),
+            ("density_fixed_h_rows" + KEY_ROWS, disc_key_launches),
+            ("force_fixed_h_rows" + KEY_ROWS, disc_key_launches),
+            ("density_var_h_rows" + KEY_ROWS, c5_key_launches),
+            ("force_var_h_rows" + KEY_ROWS, c5_key_launches)):
         launches[name] = counted[name]
         require(counted[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [

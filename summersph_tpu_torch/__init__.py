@@ -16,9 +16,11 @@ summersph_tpu_torch` is its command line (`cli`).  Entry points put their
 state on the card unless the caller asks for the CPU; on the CPU every
 kernel is replaced by its plain PyTorch version.  `neighbor_mode='dense'`
 runs the O(N^2) engine, the oracle of the sorted kernels, and `parallel`
-runs several devices in gather mode over `torch.distributed`, each rank
+runs several devices over `torch.distributed`: in gather mode, each rank
 summing its slab of the sorted rows with the row-slab form of the
-kernels.  The package imports torch and numpy, never jax.
+kernels, or in the slab decomposition (cfg.decomp='slab'), each rank
+owning a slab of the global key order and exchanging only rims.  The
+package imports torch and numpy, never jax.
 """
 
 from .config import SimConfig, read_parameters_txt, write_parameters_txt

@@ -105,8 +105,9 @@ class SimConfig:
     sort_h_pad: float = 1.2
     cell_h_quantile: float = 1.0
 
-    # --- multi-device decomposition: 'gather' runs (parallel/), 'slab'
-    # and its halo knobs are not ported yet
+    # --- multi-device decomposition (parallel/): 'gather' or 'slab'
+    # (parallel/decomp.py), whose rims, migration chunks and splitter
+    # samples these knobs size
     decomp: str = "gather"
     halo_rows: int = 1024
     grav_halo_rows: int = 2048

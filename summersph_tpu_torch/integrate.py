@@ -44,9 +44,20 @@ row-slab kernels); the dense engine sums the rank's rows against the
 gathered columns; dt, accretion, sink creation and the sink pull go
 through the mesh's collectives, and of the health counters the
 h-iteration's and the non-finite count are summed over the ranks (the
-window counters come from the replicated sort).  The slab decomposition
-and block timesteps on several ranks raise `NotImplementedError`
-(`check_supported`).
+window counters come from the replicated sort).
+
+With `cfg.decomp='slab'` the sorted engine runs the slab decomposition
+instead (`_force_eval_sorted_decomp`, `parallel/decomp.py`): each rank
+owns a slab of the global key order, re-owned every step by sampled
+splitters and one all-to-all, exchanges only rim rows with its rank
+neighbours, and sums its own rows against its rim-extended columns (the
+`key_rows` form of the pair kernels); the PM mesh is deposited from the
+slab and solved by the pencil solve, and the short range runs whole on a
+wider rim.  Per-rank memory and traffic are O(N/D + rim).  Every health
+counter but sink_slots_full is then the rank's own and is summed, and
+decomp_pressure counts the slabs' capacity pressure.  'grid' and 'dense'
+keep their gathered columns, as in the JAX package.  Block timesteps on
+several ranks raise `NotImplementedError` (`check_supported`).
 """
 
 from __future__ import annotations
@@ -64,9 +75,9 @@ from .ops.density import compute_density
 from .ops.eos import eos_update
 from .ops.forces import compute_sph_forces
 from .ops.gravity import gas_gravity_direct, sink_gravity
-from .ops.pm_gravity import (PM_MODES, gas_gravity_pm, gas_gravity_pm_held,
-                             pm_geometry, pm_long_range_held,
-                             recompute_far_field)
+from .ops.pm_gravity import (PM_MODES, gas_gravity_pm, gas_gravity_pm_decomp,
+                             gas_gravity_pm_held, pm_geometry,
+                             pm_long_range_held, recompute_far_field)
 from .ops.sinks import accrete, create_sinks, cull_bounds, merge_sinks
 from .ops.smoothing import update_smoothing
 from .ops.sorted_grid import (LANES, SORTED_MODES, sort_h_pad,
@@ -74,28 +85,25 @@ from .ops.sorted_grid import (LANES, SORTED_MODES, sort_h_pad,
 from .ops.timestep import next_timestep
 from .parallel.comm import (Mesh, all_gather_fields, axis_index,
                             gather_particles, psum)
+from .parallel.decomp import (DecompAux, attach_density, build_cols,
+                              exchange_rim, global_geometry, redistribute)
 from .state import Particles, SimState, Sinks
 
 
 def check_supported(cfg: SimConfig, axis_name: Optional[Mesh] = None):
     """Raise NotImplementedError for a configuration the port does not run
-    yet (ROADMAP.md lists the later slices): on several devices, the slab
-    decomposition and block timesteps.  `axis_name` is a `parallel.Mesh`
-    or None."""
+    on several devices: block timesteps (the JAX package's sharded drivers
+    run the global step whatever dt_bins says; ROADMAP.md).  `axis_name`
+    is a `parallel.Mesh` or None."""
     if axis_name is None:
         return
     if not isinstance(axis_name, Mesh):
         raise TypeError(f"axis_name must be a parallel.Mesh (make_mesh), "
                         f"not {axis_name!r}")
-    problems = []
-    if cfg.decomp == "slab":
-        problems.append("decomp='slab' (the slab decomposition)")
     if cfg.dt_bins > 1:
-        problems.append(f"block timesteps (dt_bins={cfg.dt_bins})")
-    if problems:
         raise NotImplementedError(
-            "not ported to summersph_tpu_torch yet on several devices: "
-            + "; ".join(problems))
+            f"block timesteps (dt_bins={cfg.dt_bins}) do not run on several "
+            f"devices in summersph_tpu_torch")
 
 
 def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
@@ -112,7 +120,8 @@ def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
     the caller's capacity; `step` and `prime` slice back (the dense engine
     keeps the caller's order).  With `axis_name` `p` is this rank's rows
     and the returned particles too: on the sorted engine its slab of the
-    sorted order.
+    sorted order; under cfg.decomp='slab' its own slab of the global key
+    order, and the aux's grid is a `parallel.decomp.DecompAux`.
     """
     if cfg.pm_every > 1 and (cfg.neighbor_mode != "sorted"
                              or (axis_name is not None
@@ -131,6 +140,8 @@ def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
     if cfg.neighbor_mode in SORTED_MODES:
         if axis_name is None:
             return _force_eval_sorted(p, s, cfg, pm)
+        if cfg.decomp == "slab" and cfg.neighbor_mode == "sorted":
+            return _force_eval_sorted_decomp(p, s, cfg, axis_name)
         return _force_eval_sorted_sharded(p, s, cfg, axis_name, pm)
     return _force_eval_dense(p, s, cfg, axis_name)
 
@@ -272,6 +283,57 @@ def _force_eval_sorted_sharded(p: Particles, s: Sinks, cfg: SimConfig,
     return rows, s.replace(acc=acc_sink), (grid, grav_over, pm_r_s)
 
 
+def _force_eval_sorted_decomp(p: Particles, s: Sinks, cfg: SimConfig,
+                              mesh: Mesh):
+    """The sorted engine under the slab decomposition (`parallel/decomp.py`).
+    Every per-rank array is O(N/D + rim): the particles are re-owned into
+    slabs of the global key order (sampled splitters, one all-to-all),
+    each rank exchanges only rim rows with its rank neighbours, and the
+    pair passes run its own rows against the local rim-extended columns
+    (the `key_rows` form of the `_rows` kernels); between them one more
+    rim exchange brings the rims' fresh density fields.  PM gravity
+    deposits the slab and solves on the mesh summed over the ranks (the
+    pencil solve where it tiles), and its short range runs on a wider rim
+    (`pm_gravity.gas_gravity_pm_decomp`).  Capacity pressure (migration
+    chunks, slabs, rims) is counted for the decomp_pressure slot."""
+    nloc = p.capacity
+    granule = max(cfg.sorted_block, LANES)
+    if nloc % granule or cfg.halo_rows % LANES \
+            or cfg.grav_halo_rows % LANES:
+        raise ValueError(
+            f"decomp='slab' needs the per-rank capacity ({nloc}), halo_rows "
+            f"({cfg.halo_rows}) and grav_halo_rows ({cfg.grav_halo_rows}) "
+            f"to be multiples of {granule}/{LANES}/{LANES}")
+    h_pad = sort_h_pad(cfg)
+    origin, cell = global_geometry(p, cfg, mesh, h_pad=h_pad)
+    key_own, p2, _, n_mis, n_slab = redistribute(p, cfg, mesh, origin, cell)
+    rim_l, rim_r = exchange_rim(key_own, p2, mesh, cfg.halo_rows,
+                                hops=cfg.halo_hops)
+    p_cols, grid, rim_short = build_cols(key_own, p2, rim_l, rim_r, cfg,
+                                         origin, cell, h_pad)
+    pressure = n_mis + n_slab + rim_short
+
+    p2 = eos_update(density(p_cols, cfg, grid, rows=(p2, key_own)), cfg)
+    p_cols = attach_density(key_own, p2, p_cols, mesh, cfg)
+    acc, du, dalpha = forces(p_cols, cfg, grid, rows=(p2, key_own))
+
+    grav_over = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    if cfg.gravity == "direct":
+        acc = acc + gas_gravity_direct(p2, cfg,
+                                       cols=gather_particles(p2, mesh))
+    elif cfg.gravity in PM_MODES:
+        acc_pm, grav_over, rim_short_g = gas_gravity_pm_decomp(
+            p2, key_own, cell, cfg, mesh)
+        acc = acc + acc_pm
+        pressure = pressure + rim_short_g
+
+    acc_gas_sink, acc_sink = sink_gravity(p2, s, mesh)
+    p2 = p2.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
+    aux = DecompAux(grid=grid, cols=p_cols, key_rows=key_own,
+                    pressure=pressure.to(torch.int32))
+    return p2, s.replace(acc=acc_sink), (aux, grav_over, None)
+
+
 def kick(p: Particles, s: Sinks, dt):
     """Half-kick: v += a dt/2, u += du dt/2, alpha += dalpha dt/2, with
     the Kahan-compensated u update when the carry `u_c` is present."""
@@ -304,10 +366,10 @@ def drift(p: Particles, s: Sinks, dt):
 
 
 def _coverage_stats(cfg: SimConfig, grid, grav_over, n_unconverged,
-                    nonfinite, sink_full):
+                    nonfinite, sink_full, decomp_pressure=None):
     """int32[len(STATS_FIELDS)] health counters for this step.  The window
-    slots are 0 on the dense engine (no grid); the decomposition slot
-    stays 0: the slab decomposition is not ported."""
+    slots are 0 on the dense engine (no grid); the decomposition slot is
+    0 outside the slab decomposition."""
     zero = torch.zeros((), dtype=torch.int32, device=grav_over.device)
     if grid is None:
         sph_over = clamped = zero
@@ -317,7 +379,8 @@ def _coverage_stats(cfg: SimConfig, grid, grav_over, n_unconverged,
                         grav_over.to(torch.int32),
                         n_unconverged.to(torch.int32),
                         nonfinite.to(torch.int32), sink_full.to(torch.int32),
-                        zero])
+                        zero if decomp_pressure is None
+                        else decomp_pressure.to(torch.int32)])
 
 
 def _count_nonfinite(p: Particles) -> torch.Tensor:
@@ -365,13 +428,23 @@ def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
     t = state.t + dt
     dt = next_timestep(p, dt, cfg, axis_name)
 
+    # the slab decomposition hands its local columns and grid on
+    aux = grid if isinstance(grid, DecompAux) else None
+    if aux is not None:
+        grid = aux.grid
+
     n_unconverged = torch.zeros((), dtype=torch.int32, device=p.pos.device)
     sink_full = torch.zeros((), dtype=torch.int32, device=p.pos.device)
     if cfg.fixed_h is None:
-        cols = (gather_particles(p, axis_name) if axis_name is not None
-                else None)
-        p, n_unconverged = update_smoothing(p, cfg, cols=cols, grid=grid,
-                                            axis_name=axis_name)
+        if aux is not None:
+            p, n_unconverged = update_smoothing(
+                p, cfg, cols=aux.cols, grid=grid, axis_name=axis_name,
+                key_rows=aux.key_rows)
+        else:
+            cols = (gather_particles(p, axis_name) if axis_name is not None
+                    else None)
+            p, n_unconverged = update_smoothing(p, cfg, cols=cols, grid=grid,
+                                                axis_name=axis_name)
         s, sink_full = create_sinks(p, s, cfg, axis_name)
 
     p, s = accrete(p, s, axis_name)
@@ -381,8 +454,15 @@ def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
     p, s = cull_bounds(p, s, cfg)
 
     stats = _coverage_stats(cfg, grid, grav_over, n_unconverged,
-                            _count_nonfinite(p), sink_full)
-    if axis_name is not None:
+                            _count_nonfinite(p), sink_full,
+                            None if aux is None else aux.pressure)
+    if aux is not None:
+        # the slab decomposition's counters are all the rank's own (local
+        # grids, local gravity, local pressure events) but sink_slots_full
+        # (5), which the replicated sinks give every rank alike
+        summed = psum(stats, axis_name)
+        stats = torch.cat([summed[:5], stats[5:6], summed[6:]])
+    elif axis_name is not None:
         # the window counters (0-2) come from the replicated sort and
         # sink_slots_full (5) from replicated sinks: summing them would
         # multiply them by the rank count.  Only the per-rank h-iteration

@@ -36,6 +36,19 @@ on the rows alone and which is read from p_rows.  The slabs of a launch,
 laid end to end, equal the whole launch bit for bit, in the kernels as in
 the plain versions.
 
+The slab decomposition's rows are a set apart from the columns: with
+`rows` = (p_rows, key_rows), key_rows a 1-D int32 tensor of the rows'
+cell keys, the p_rows.capacity rows are summed against the columns `p`
+(whose keys are grid.key), and grid.starts/ends are already the row
+groups' windows into the columns (`parallel.decomp.build_cols`).  Every
+row field is read from p_rows.  The same `_rows` entry points run it,
+given the rows' own records (`pack_geometry(p_rows.pos, key_rows)`, for
+the force also `pack_force(p_rows, key_rows)`, a second `pack_force`
+launch) and the row groups' windows; its launches are counted apart
+(`key_rows_launches`, `var_key_rows_launches`).  It has no gated or fused
+form, and the short-range gravity never takes it (the slab decomposition
+runs `grav_short` whole on its local set).
+
 Both versions compute the same sums over the same ranges: for every
 window group of `cfg.window_group` sorted rows and each of the 9 plane
 offsets, every candidate in the group's true [starts, ends), under each
@@ -114,13 +127,19 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid,
-                       packed=(), row_floats=None, n_rows=None):
+                       packed=(), row_floats=None, n_rows=None,
+                       row_ints=None):
     """Raise on what the kernels do not take.  The fields named in `packed`
     reach a kernel through a pack, which copies them, and need not be
     contiguous; every other one is passed by its pointer.  `row_floats`
-    are fields of the `n_rows` rows of a row-slab launch."""
-    if row_floats:
-        _check_cuda_inputs(n_rows, None, row_floats, {}, None)
+    and `row_ints` are fields of the `n_rows` rows of a row-slab or
+    key_rows launch."""
+    if row_floats or row_ints:
+        _check_cuda_inputs(n_rows, None, row_floats or {}, row_ints or {},
+                           None, packed)
+    for name, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
     for name, t in floats.items():
         if t.dtype != torch.float32:
             raise TypeError(f"CUDA pair kernels take float32 only; {name} "
@@ -133,8 +152,6 @@ def _check_cuda_inputs(n: int, groups: int, floats, ints, grid: SortedGrid,
                              f"{t.device} (contiguous={t.is_contiguous()})")
     if grid is None:
         return
-    if ints["key"].dtype != torch.int32:
-        raise TypeError("grid.key must be int32")
     for name in ("starts", "ends"):
         t = getattr(grid, name)
         if (t.dtype != torch.int32 or not t.is_contiguous()
@@ -237,6 +254,29 @@ def _split_buffer(grav_split, device) -> torch.Tensor:
                         for v in grav_split]).to(torch.float32).contiguous()
 
 
+def _key_rows(rows):
+    """The row keys of rows=(p_rows, key_rows), the slab decomposition's
+    separate row set; None for rows=None and rows=(p_rows, offset)."""
+    if rows is not None and isinstance(rows[1], torch.Tensor) \
+            and rows[1].dim() == 1:
+        return rows[1]
+    return None
+
+
+def _key_rows_check(p_rows: Particles, key_rows, cfg: SimConfig,
+                    grid: SortedGrid, active) -> int:
+    """The window groups of a key_rows launch, after checking that the
+    rows tile into them, that their keys match them, and that no gate
+    comes with them (the form has no gated form)."""
+    if active is not None:
+        raise ValueError("a key_rows launch (rows=(p_rows, key_rows)) takes "
+                         "no `active` gate")
+    if key_rows.shape != (p_rows.capacity,):
+        raise ValueError(f"key_rows {tuple(key_rows.shape)} does not match "
+                         f"the {p_rows.capacity} rows")
+    return _groups(p_rows.capacity, cfg, grid)
+
+
 def _groups(n: int, cfg: SimConfig, grid: SortedGrid) -> int:
     wg = cfg.window_group
     if n % wg or grid.starts.shape[0] != n // wg:
@@ -278,27 +318,42 @@ def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
     with fixed h omega_raw is zero, as `pallas_density_sums` returns it.
     With `active` = (worklist, count) only the listed window groups, 0 on
     the rest.  With `rows` = (p_rows, offset) the p_rows.capacity rows
-    from `offset` on, each [n_rows], with the rows' h from p_rows.  CPU:
-    the plain version; CUDA: the `density_fixed_h` kernel, or
+    from `offset` on, each [n_rows], with the rows' h from p_rows; with
+    `rows` = (p_rows, key_rows) the rows p_rows against the columns p.
+    CPU: the plain version; CUDA: the `density_fixed_h` kernel, or
     `density_var_h` when cfg.fixed_h is None, or with `active` their
     `_gated` forms, with `rows` their `_rows` forms."""
     if _on_cpu(p.pos):
         return density_sums_plain(p, cfg, grid, active, rows)
     n = p.capacity
-    groups = _groups(n, cfg, grid)
+    key_rows = _key_rows(rows)
     # dead particles carry mass 0, as in the TPU pack
     m = torch.where(p.alive, p.mass, 0.0)
+    row_ints, slab = None, None
     if rows is None:
-        h, n_rows, slab = p.h.contiguous(), n, None
+        groups = _groups(n, cfg, grid)
+        h, n_rows = p.h.contiguous(), n
     else:
         h, n_rows = rows[0].h.contiguous(), rows[0].capacity
+    row_floats = {"h": h}
+    if rows is not None and key_rows is None:
+        groups = _groups(n, cfg, grid)
         slab = _row_slab(n, cfg, rows[1], n_rows, active)
+    elif key_rows is not None:
+        groups = _key_rows_check(rows[0], key_rows, cfg, grid, active)
+        row_floats["x_rows"] = rows[0].pos[:, 0]
+        row_ints = {"key_rows": key_rows}
     _check_cuda_inputs(n, groups, {"x": p.pos[:, 0], "m": m},
-                       {"key": grid.key}, grid, packed=("x",),
-                       row_floats={"h": h}, n_rows=n_rows)
+                       {"key": grid.key}, grid, packed=("x", "x_rows"),
+                       row_floats=row_floats, n_rows=n_rows,
+                       row_ints=row_ints)
     geo = pack_geometry(p.pos, grid.key)
-    geo_rows = () if slab is None else (
-        geo[slab[0] * cfg.window_group:].data_ptr(),)
+    geo_rows = ()
+    if slab is not None:
+        geo_rows = (geo[slab[0] * cfg.window_group:].data_ptr(),)
+    elif key_rows is not None:
+        geo_r = pack_geometry(rows[0].pos, key_rows)
+        geo_rows = (geo_r.data_ptr(),)
     starts, ends = _windows(grid, slab)
     gated = active is not None
     gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
@@ -308,31 +363,36 @@ def density_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
         (2, n_rows), dtype=torch.float32, device=p.pos.device)
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
     name = (("density_var_h" if var else "density_fixed_h")
-            + ("_gated" if gated else "") + ("_rows" if slab else ""))
+            + ("_gated" if gated else "") + ("_rows" if geo_rows else ""))
     _launch(getattr(_library(), name),
             geo.data_ptr(), m.data_ptr(), *geo_rows, h.data_ptr(),
             starts.data_ptr(), ends.data_ptr(),
             *(outs[c].data_ptr() for c in range(2 if var else 1)), *gate,
             n_rows, cfg.window_group, stream)
-    _count(density_sums, var, False, gated, slab is not None)
+    _count(density_sums, var, False, gated, slab is not None,
+           key_rows is not None)
     return outs[0], outs[1]
 
 
-def _count(wrapper, var: bool, fused: bool, gated: bool, rows=False):
+def _count(wrapper, var: bool, fused: bool, gated: bool, rows=False,
+           key_rows=False):
     """Add one to the launch count of the kernel a wrapper just launched:
-    `launches`, with `var_`, `fused_`, `gated_` and `rows_` in that order
-    for the variable-h, fused-gravity, gated and row-slab forms."""
+    `launches`, with `var_`, `fused_`, `gated_`, `rows_` and `key_rows_`
+    in that order for the variable-h, fused-gravity, gated, row-slab and
+    key_rows forms."""
     name = (("var_" if var else "") + ("fused_" if fused else "")
             + ("gated_" if gated else "") + ("rows_" if rows else "")
-            + "launches")
+            + ("key_rows_" if key_rows else "") + "launches")
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def launch_counters():
-    """(wrapper, attribute) of every launch count, one per CUDA kernel."""
+    """(wrapper, attribute) of every launch count: one per CUDA kernel,
+    and one for the key_rows form of each `_rows` SPH kernel."""
     sph = [v + f + g + "launches" for v in ("", "var_")
-           for f in ("", "fused_") for g in ("", "gated_", "rows_")
-           if not (f and g == "rows_")]
+           for f in ("", "fused_")
+           for g in ("", "gated_", "rows_", "key_rows_")
+           if not (f and g in ("rows_", "key_rows_"))]
     return ([(density_sums, a) for a in sph if "fused_" not in a]
             + [(force_sums, a) for a in sph]
             + [(grav_short_sums, "launches"),
@@ -378,15 +438,18 @@ def _candidate_chunks(grid: SortedGrid, wg: int, active=None, slab=None):
 
 
 def _pair_geometry(pos: torch.Tensor, grid: SortedGrid, rows, idx, valid,
-                   off):
+                   off, row_view=None):
     """(key mask [Gc, wg, C], dx, dy, dz, r2) of one chunk of the sorted
-    positions `pos` [N, 3]."""
-    ki = grid.key[rows][:, :, None]
+    positions `pos` [N, 3].  The rows' positions and keys are the
+    columns' (`rows` indexes `pos` and grid.key) or, with `row_view` =
+    (pos_rows, key_rows), a separate row set's (`rows` indexes those)."""
+    pos_r, key_r = (pos, grid.key) if row_view is None else row_view
+    ki = key_r[rows][:, :, None]
     kj = grid.key[idx][:, None, :]
     offc = off[:, None, :]
     mask = (valid[:, None, :] & (kj >= ki + offc - 1)
             & (kj <= ki + offc + 1))
-    d = [pos[rows, c][:, :, None] - pos[idx, c][:, None, :]
+    d = [pos_r[rows, c][:, :, None] - pos[idx, c][:, None, :]
          for c in range(3)]
     r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
     return mask, d[0], d[1], d[2], r2
@@ -395,22 +458,29 @@ def _pair_geometry(pos: torch.Tensor, grid: SortedGrid, rows, idx, valid,
 def density_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
                        active=None, rows=None):
     """Plain PyTorch version of `density_fixed_h` and `density_var_h` and,
-    with `active`, of their gated forms, with `rows` of their row-slab
-    forms, on any device and dtype: the same pair algebra
+    with `active`, of their gated forms, with `rows` of their row-slab and
+    key_rows forms, on any device and dtype: the same pair algebra
     (rsqrt(max(r^2, 1e-12)) form, r^2 > 0 self exclusion, dW/dh shape
     -(3 w + q w')) over the same ranges, in chunks of window groups."""
     wg = cfg.window_group
-    _groups(p.capacity, cfg, grid)
     var = cfg.fixed_h is None
     m_all = torch.where(p.alive, p.mass, 0.0)
-    h_rows, offset, slab = p.h, 0, None
-    if rows is not None:
-        h_rows, offset = rows[0].h, rows[1]
-        slab = _row_slab(p.capacity, cfg, offset, rows[0].capacity, active)
+    h_rows, offset, slab, row_view = p.h, 0, None, None
+    key_rows = _key_rows(rows)
+    if key_rows is not None:
+        _key_rows_check(rows[0], key_rows, cfg, grid, active)
+        h_rows, row_view = rows[0].h, (rows[0].pos, key_rows)
+    else:
+        _groups(p.capacity, cfg, grid)
+        if rows is not None:
+            h_rows, offset = rows[0].h, rows[1]
+            slab = _row_slab(p.capacity, cfg, offset, rows[0].capacity,
+                             active)
     rho = torch.zeros_like(h_rows)
     omega = torch.zeros_like(h_rows)
     for ri, idx, valid, off in _candidate_chunks(grid, wg, active, slab):
-        mask, _, _, _, r2 = _pair_geometry(p.pos, grid, ri, idx, valid, off)
+        mask, _, _, _, r2 = _pair_geometry(p.pos, grid, ri, idx, valid, off,
+                                           row_view)
         local = ri - offset          # the chunk's rows in the output
         inv_hi = 1.0 / h_rows[local][:, :, None]
         r = r2 * torch.rsqrt(torch.clamp(r2, min=1.0e-12))
@@ -453,7 +523,9 @@ def forces(p: Particles, cfg: SimConfig, grid: SortedGrid, rows=None):
     """(acc [N, 3], du, dalpha) of the force pass, zero on dead rows: the
     sums and the alpha switch (`pairs.alpha_rate`).  Counterpart of
     `pallas_forces`; with `rows` = (p_rows, offset) for p_rows's rows only
-    (gather mode), whose fields are the columns' rows from `offset` on."""
+    (gather mode), whose fields are the columns' rows from `offset` on,
+    with `rows` = (p_rows, key_rows) for the separate row set p_rows (the
+    slab decomposition)."""
     ax, ay, az, du, araw = force_sums(p, cfg, grid, rows=rows)
     tgt = p if rows is None else rows[0]
     dalpha = pairs.alpha_rate(araw, tgt.rho, tgt.alpha, tgt.cs, tgt.h, cfg)
@@ -475,46 +547,66 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
     fits the SPH cell).  With `active` = (worklist, count) only the listed
     window groups, 0 on the rest.  With `rows` = (p_rows, offset) the
     p_rows.capacity rows from `offset` on, each [n_rows]: gather mode's
-    rows are the columns' rows, whose fields are read from `p` (no fused
-    or gated form).  CPU: the plain version; CUDA: `force_fixed_h` or
-    `force_var_h`, or with `grav_split` `force_fixed_h_grav` or
-    `force_var_h_grav`, by cfg.fixed_h, or with `active` the `_gated` form
-    of the same, with `rows` the `_rows` form."""
+    rows are the columns' rows, whose fields are read from `p`; with
+    `rows` = (p_rows, key_rows) the separate row set p_rows, whose fields
+    are read from p_rows (neither has a fused or gated form).  CPU: the
+    plain version; CUDA: `force_fixed_h` or `force_var_h`, or with
+    `grav_split` `force_fixed_h_grav` or `force_var_h_grav`, by
+    cfg.fixed_h, or with `active` the `_gated` form of the same, with
+    `rows` the `_rows` form."""
     if _on_cpu(p.pos):
         return force_sums_plain(p, cfg, grid, grav_split, active, rows)
     n = p.capacity
-    groups = _groups(n, cfg, grid)
+    key_rows = _key_rows(rows)
     slab = None
-    if rows is not None:
-        if grav_split is not None:
-            raise ValueError("the fused force has no row-slab form")
-        slab = _row_slab(n, cfg, rows[1], rows[0].capacity, active)
-    h = p.h.contiguous()
-    pres, omega = p.pressure.contiguous(), p.omega.contiguous()
-    _check_cuda_inputs(
-        n, groups, {"x": p.pos[:, 0], "vx": p.vel[:, 0], "m": p.mass,
-                    "h": h, "pressure": pres, "rho": p.rho, "omega": omega,
-                    "cs": p.cs, "alpha": p.alpha}, {"key": grid.key}, grid,
-        packed=("x", "vx", "m", "rho", "cs", "alpha"))
+    if rows is not None and grav_split is not None:
+        raise ValueError("the fused force has no row-slab form")
+    if key_rows is None:
+        groups = _groups(n, cfg, grid)
+        if rows is not None:
+            slab = _row_slab(n, cfg, rows[1], rows[0].capacity, active)
+    else:
+        groups = _key_rows_check(rows[0], key_rows, cfg, grid, active)
+
+    def fields(q: Particles):
+        return {"x": q.pos[:, 0], "vx": q.vel[:, 0], "m": q.mass,
+                "h": q.h.contiguous(), "pressure": q.pressure.contiguous(),
+                "rho": q.rho, "omega": q.omega.contiguous(), "cs": q.cs,
+                "alpha": q.alpha}
+
+    packed = ("x", "vx", "m", "rho", "cs", "alpha")
+    cols = fields(p)
+    rf = cols if key_rows is None else fields(rows[0])
+    _check_cuda_inputs(n, groups, cols, {"key": grid.key}, grid,
+                       packed=packed,
+                       row_floats=None if key_rows is None else rf,
+                       n_rows=None if key_rows is None else rows[0].capacity,
+                       row_ints=None if key_rows is None
+                       else {"key_rows": key_rows})
     var = cfg.fixed_h is None
     geo, attr, sup2 = pack_force(p, grid.key, var)
     gated, fused = active is not None, grav_split is not None
     gate = _gate_pointers(active, groups, p.pos.device) if gated else ()
     n_rows, r0 = n, 0
+    row_recs = ()
     if slab is not None:
         n_rows, r0 = slab[1] * cfg.window_group, slab[0] * cfg.window_group
+        # the rows' records: the columns' from the slab's first row on
+        row_recs = (geo[r0:].data_ptr(), attr[r0:].data_ptr())
+    elif key_rows is not None:
+        n_rows = rows[0].capacity
+        geo_r, attr_r, _ = pack_force(rows[0], key_rows, var)
+        row_recs = (geo_r.data_ptr(), attr_r.data_ptr())
     # a gated kernel leaves unlisted rows unwritten: they must read 0
     outs = (torch.zeros if gated else torch.empty)(
         (8 if fused else 5, n_rows), dtype=torch.float32,
         device=p.pos.device)
     stream = torch.cuda.current_stream(p.pos.device).cuda_stream
     starts, ends = _windows(grid, slab)
-    # the rows' records: the columns' from the slab's first row on
-    row_recs = () if slab is None else (geo[r0:].data_ptr(),
-                                        attr[r0:].data_ptr())
     args = (geo.data_ptr(), attr.data_ptr(),
             sup2.data_ptr() if var else None, *row_recs,
-            h[r0:].data_ptr(), pres[r0:].data_ptr(), omega[r0:].data_ptr(),
+            rf["h"][r0:].data_ptr(), rf["pressure"][r0:].data_ptr(),
+            rf["omega"][r0:].data_ptr(),
             starts.data_ptr(), ends.data_ptr(),
             *(outs[c].data_ptr() for c in range(5)))
     grav = ()
@@ -523,10 +615,11 @@ def force_sums(p: Particles, cfg: SimConfig, grid: SortedGrid,
         grav = (split.data_ptr(), *(outs[c].data_ptr() for c in range(5, 8)))
     name = (("force_var_h" if var else "force_fixed_h")
             + ("_grav" if fused else "") + ("_gated" if gated else "")
-            + ("_rows" if slab else ""))
+            + ("_rows" if row_recs else ""))
     _launch(getattr(_library(), name), *args, *grav, *gate, n_rows,
             cfg.window_group, cfg.av_eps, cfg.beta_factor, stream)
-    _count(force_sums, var, fused, gated, slab is not None)
+    _count(force_sums, var, fused, gated, slab is not None,
+           key_rows is not None)
     if not fused:
         return tuple(outs)
     return tuple(outs[:5]) + (tuple(outs[5:]),)
@@ -536,20 +629,26 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
                      grav_split=None, active=None, rows=None):
     """Plain PyTorch version of `force_fixed_h` and `force_var_h` (with
     `grav_split` of their fused forms, with `active` of the gated form of
-    any of the four, with `rows` of the row-slab form), on any device and
-    dtype: the Pallas algebra (one dW with fixed h; dW_i, dW_j, their mean
-    and hbar with variable h; the 1e-30 guards on pterm_j and rhobar, the
-    rsqrt clamp, no explicit r > 0 guard) over the same ranges, in
-    chunks."""
+    any of the four, with `rows` of the row-slab and key_rows forms), on
+    any device and dtype: the Pallas algebra (one dW with fixed h; dW_i,
+    dW_j, their mean and hbar with variable h; the 1e-30 guards on pterm_j
+    and rhobar, the rsqrt clamp, no explicit r > 0 guard) over the same
+    ranges, in chunks."""
     wg = cfg.window_group
-    _groups(p.capacity, cfg, grid)
     var = cfg.fixed_h is None
-    offset, slab, n_rows = 0, None, p.capacity
-    if rows is not None:
-        if grav_split is not None:
-            raise ValueError("the fused force has no row-slab form")
-        offset, n_rows = rows[1], rows[0].capacity
-        slab = _row_slab(p.capacity, cfg, offset, n_rows, active)
+    offset, slab, n_rows, pr, row_view = 0, None, p.capacity, p, None
+    key_rows = _key_rows(rows)
+    if rows is not None and grav_split is not None:
+        raise ValueError("the fused force has no row-slab form")
+    if key_rows is not None:
+        _key_rows_check(rows[0], key_rows, cfg, grid, active)
+        pr, n_rows = rows[0], rows[0].capacity
+        row_view = (pr.pos, key_rows)
+    else:
+        _groups(p.capacity, cfg, grid)
+        if rows is not None:
+            offset, n_rows = rows[1], rows[0].capacity
+            slab = _row_slab(p.capacity, cfg, offset, n_rows, active)
     m_all = torch.where(p.alive, p.mass, 0.0)
     pterm_all = p.pressure / torch.clamp(p.omega * p.rho * p.rho,
                                          min=1.0e-30)
@@ -561,7 +660,7 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
     outs = torch.zeros((nc, n_rows), dtype=p.pos.dtype, device=p.pos.device)
     for rows, idx, valid, off in _candidate_chunks(grid, wg, active, slab):
         mask, dxx, dxy, dxz, r2 = _pair_geometry(p.pos, grid, rows, idx,
-                                                 valid, off)
+                                                 valid, off, row_view)
 
         def ri(a):
             return a[rows][:, :, None]
@@ -569,8 +668,8 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
         def cj(a):
             return a[idx][:, None, :]
 
-        hi, rhoi = ri(p.h), ri(p.rho)
-        pterm_i = ri(p.pressure) / (ri(p.omega) * rhoi * rhoi)
+        hi, rhoi = ri(pr.h), ri(pr.rho)
+        pterm_i = ri(pr.pressure) / (ri(pr.omega) * rhoi * rhoi)
         inv_hi = 1.0 / hi
         inv_pi_hi4 = (1.0 / PI) * inv_hi * inv_hi * inv_hi * inv_hi
         inv_r = torch.rsqrt(torch.clamp(r2, min=1.0e-12))
@@ -582,14 +681,14 @@ def force_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
             hbar = 0.5 * (hi + cj(p.h))
         else:
             dwbar, hbar = dw, hi
-        vx = ri(p.vel[:, 0]) - cj(p.vel[:, 0])
-        vy = ri(p.vel[:, 1]) - cj(p.vel[:, 1])
-        vz = ri(p.vel[:, 2]) - cj(p.vel[:, 2])
+        vx = ri(pr.vel[:, 0]) - cj(p.vel[:, 0])
+        vy = ri(pr.vel[:, 1]) - cj(p.vel[:, 1])
+        vz = ri(pr.vel[:, 2]) - cj(p.vel[:, 2])
         vdotr = vx * dxx + vy * dxy + vz * dxz
         mu = (hbar * torch.clamp(vdotr, max=0.0)
               / (r2 + cfg.av_eps * hbar * hbar))
-        cbar = 0.5 * (ri(p.cs) + cj(p.cs))
-        abar = 0.5 * (ri(p.alpha) + cj(p.alpha))
+        cbar = 0.5 * (ri(pr.cs) + cj(p.cs))
+        abar = 0.5 * (ri(pr.alpha) + cj(p.alpha))
         rhobar = 0.5 * (rhoi + cj(p.rho))
         visc = ((-abar * cbar * mu + cfg.beta_factor * abar * mu * mu)
                 / torch.clamp(rhobar, min=1.0e-30))

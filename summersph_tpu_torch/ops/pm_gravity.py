@@ -28,9 +28,22 @@ deposits its own rows and the mesh is summed over the ranks, each rank
 sums the short range of its 1/D slab of the gravity-sorted rows (the
 `grav_short_rows` kernel: a work split, not the caller's rows), scatters
 them to p's order, and the [N, 3] partial forces are summed over the
-ranks before the caller's rows are sliced out.  The slab decomposition's
-`decomp` branches are not ported.  `grav_fft='matmul'` (the TPU's pruned matmul DFT) is accepted as another
-name for the one `torch.fft` path.  The short-range kernel walks every
+ranks before the caller's rows are sliced out.
+
+Under the slab decomposition (`decomp=True`, `gas_gravity_pm_decomp`) `p`
+is a rank's own slab: the box is reduced over the ranks, the rank
+deposits its slab, and with grav_fft='matmul' (both packages' default)
+the mesh is solved by the pencil solve (`poisson_pencil`, the
+counterpart of the JAX package's `mm_dft.poisson_pencil`, with
+`torch.fft`): the deposit summed and scattered over x, the transforms'
+heavy middle split over ky with two all-to-alls, phi gathered.  Where
+the rank count does not tile the mesh (D must divide n and
+m_p = 8 ceil((n + 4) / 8)) it falls back to the summed mesh and the
+replicated solve, as the JAX package does.  The short range runs whole
+(the `grav_short` kernel) on [left rim | own | right rim] with a rim of
+cfg.grav_halo_rows rows a hop.  Otherwise `grav_fft='matmul'` (the
+TPU's pruned matmul DFT) is accepted as another name for the one
+`torch.fft` path.  The short-range kernel walks every
 window group's whole candidate range, so the JAX package's overflow
 worklist (`grav_overflow_items`) has nothing left to cover: the knob is
 accepted, and the overflow count is 0.
@@ -45,7 +58,9 @@ from typing import Optional
 import torch
 
 from ..config import SimConfig
-from ..parallel.comm import axis_index, psum
+from ..parallel.comm import (all_gather_tiled, all_to_all_tiled,
+                             axis_index, pmax, pmin, psum, psum_scatter)
+from ..parallel.decomp import KX, KY, exchange_rim, rim_short_count
 from ..state import Particles
 from ..utils.units import G, PI
 from .cuda_pairs import grav_short_sums
@@ -157,15 +172,20 @@ def _fd4_gradient(phi, cell):
     return comps
 
 
-def pm_geometry(p: Particles, cfg: SimConfig):
+def pm_geometry(p: Particles, cfg: SimConfig, axis_name=None,
+                decomp: bool = False):
     """(origin [3], cell, r_s): the mesh box over the live bounding cube
     and the Gaussian split scale, as 0-d tensors.  Deterministic in the
     particles, so a caller that needs r_s before the long-range solve (the
-    fused force kernel) gets the value `pm_long_range` will use."""
+    fused force kernel) gets the value `pm_long_range` will use.  With
+    `decomp` `p` is a rank's slab and the box bounds the live particles
+    of every rank of `axis_name`."""
     n = cfg.grav_grid
     alive3 = p.alive[:, None]
     lo = torch.amin(torch.where(alive3, p.pos, torch.inf), dim=0)
     hi = torch.amax(torch.where(alive3, p.pos, -torch.inf), dim=0)
+    if decomp:
+        lo, hi = pmin(lo, axis_name), pmax(hi, axis_name)
     lo = torch.where(torch.isfinite(lo), lo, 0.0)
     hi = torch.where(torch.isfinite(hi), hi, 1.0)
     # all particles in mesh cells [1, n-2]: the CIC halo never touches
@@ -176,24 +196,107 @@ def pm_geometry(p: Particles, cfg: SimConfig):
     return origin, cell, cfg.grav_split_rs * cell
 
 
-def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None):
+def _ghost_crop(n: int) -> int:
+    """m_p: the n + 4 rows of the mesh crop and the fd4 stencil's ghost
+    ring, padded to a multiple of 8 (the JAX package's `ci_p` tables), so
+    that the pencil solve can split them over 2, 4 or 8 ranks."""
+    return -(-(n + 4) // 8) * 8
+
+
+def pencil_tiles(n: int, n_ranks: int) -> bool:
+    """Whether the pencil solve splits a grid of n over n_ranks ranks: the
+    deposit's x planes (n) and the ghost-cropped rows (m_p) must both
+    divide, as in the JAX package."""
+    return n % n_ranks == 0 and _ghost_crop(n) % n_ranks == 0
+
+
+def poisson_pencil(rho_local: torch.Tensor, kern_k: torch.Tensor, scale,
+                   mesh) -> torch.Tensor:
+    """The isolated-boundary Poisson solve of the mesh summed over the
+    ranks, with the transforms split over them (the JAX package's
+    `mm_dft.poisson_pencil`, in `torch.fft`).  Every rank holds its own
+    deposit `rho_local` [n, n, n]; returns phi_m [m, m, m], m = n + 4,
+    the same on every rank: phi on the crop and the fd4 stencil's ghost
+    ring, phi_m[a] = phi[(a - 2) mod npad] on every axis.
+
+      psum_scatter over x     [n / D, n, n] summed planes of this rank
+      z (rfft) and y (fft)    [n / D, npad, H], zero-padded to npad
+      all-to-all x <-> ky     [n, npad / D, H]
+      x (fft), Green's table of this ky block x scale, inverse x
+      ghost-crop rows         [m_p, npad / D, H]
+      all-to-all back         [m_p / D, npad, H]
+      inverse y, z (irfft)    [m_p / D, m, m], ghost-cropped
+      all-gather              [m_p, m, m], then the first m
+
+    The transforms and the spectrum split 1/D over the ranks; the deposit
+    sum and the phi gather stay O(n^3) bytes, as the summed mesh they
+    replace."""
+    n = rho_local.shape[0]
+    npad, D = 2 * n, mesh.size
+    m, m_p = n + 4, _ghost_crop(n)
+    ghost = (torch.arange(m_p, device=rho_local.device) - 2) % npad
+    f = psum_scatter(rho_local, mesh)
+    f = torch.fft.fft(torch.fft.rfft(f, n=npad, dim=2), n=npad, dim=1)
+    f = all_to_all_tiled(f, mesh, split_dim=1, concat_dim=0)
+    f = torch.fft.fft(f, n=npad, dim=0)
+    b = npad // D
+    f = f * (kern_k[:, mesh.rank * b:(mesh.rank + 1) * b] * scale)
+    f = torch.fft.ifft(f, dim=0)[ghost]
+    f = all_to_all_tiled(f, mesh, split_dim=0, concat_dim=1)
+    f = torch.fft.ifft(f, dim=1)[:, ghost[:m]]
+    phi = torch.fft.irfft(f, n=npad, dim=2)[:, :, ghost[:m]]
+    return all_gather_tiled(phi.contiguous(), mesh)[:m]
+
+
+def _fd4_gradient_pruned(phi_m, cell, n: int):
+    """F = -grad phi by 4th-order central differences on the ghost-ringed
+    m-cube of `poisson_pencil`: output j reads phi_m[j .. j + 4] on its
+    axis.  Returns (gx, gy, gz), each [n, n, n]."""
+    inv12c = 1.0 / (12.0 * cell)
+
+    def d(axis):
+        def sl(lo):
+            idx = [slice(2, 2 + n)] * 3
+            idx[axis] = slice(lo, lo + n)
+            return phi_m[tuple(idx)]
+        return (-sl(4) + 8.0 * sl(3) - 8.0 * sl(1) + sl(0)) * inv12c
+
+    return [-d(0), -d(1), -d(2)]
+
+
+def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None,
+                  decomp: bool = False):
     """Gaussian-filtered long-range gravitational acceleration (CIC-PM).
     Returns (acc [N, 3], origin, cell, r_s); r_s is the split scale the
     short-range pass must complement.  Each call is one solve, counted in
-    `pm_long_range.solves`.  With `rows` = (p_rows, offset) and
+    `pm_long_range.solves` (and those of the pencil solve also in
+    `pm_long_range.pencil_solves`).  With `rows` = (p_rows, offset) and
     `axis_name` the box comes from the full set `p`, this rank deposits
-    p_rows, the mesh is summed over the ranks, and acc is p_rows's."""
+    p_rows, the mesh is summed over the ranks, and acc is p_rows's.  With
+    `decomp` and `axis_name` (the slab decomposition) `p` is this rank's
+    slab: the box is reduced over the ranks, and with grav_fft='matmul'
+    the mesh is solved by `poisson_pencil` where `pencil_tiles` holds."""
     if cfg.grav_fft == "matmul" and cfg.grav_gradient != "fd":
         raise ValueError("grav_fft='matmul' implements the 'fd' gradient "
                          "only (set grav_gradient='fd' or grav_fft='xla')")
     n = cfg.grav_grid
     npad = 2 * n  # isolated (vacuum) boundaries: zero-pad 2x per axis
     dtype, dev = p.pos.dtype, p.pos.device
-    origin, cell, r_s = pm_geometry(p, cfg)
+    origin, cell, r_s = pm_geometry(p, cfg, axis_name, decomp)
 
     p_dep = p if rows is None else rows[0]
     m = torch.where(p_dep.alive, p_dep.mass, 0.0)
     rho = _cic_deposit(p_dep.pos, m, origin, cell, n) / cell ** 3
+    if (decomp and axis_name is not None and cfg.grav_fft == "matmul"
+            and pencil_tiles(n, axis_name.size)):
+        phi_m = poisson_pencil(rho, grav_tables(cfg, dtype, dev),
+                               cell * cell, axis_name)
+        force = torch.stack(_fd4_gradient_pruned(phi_m, cell, n), dim=-1)
+        acc = _cic_gather(force, p_dep.pos, origin, cell, n)
+        pm_long_range.solves += 1
+        pm_long_range.pencil_solves += 1
+        return (torch.where(p_dep.alive[:, None], acc.to(dtype), 0.0),
+                origin, cell, r_s)
     if axis_name is not None:
         rho = psum(rho, axis_name)
     rho_pad = torch.zeros((npad, npad, npad), dtype=dtype, device=dev)
@@ -223,6 +326,7 @@ def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None):
 
 
 pm_long_range.solves = 0
+pm_long_range.pencil_solves = 0
 
 
 def erf_approx(x, expmx2):
@@ -344,6 +448,55 @@ def gas_gravity_pm(p: Particles, cfg: SimConfig, rows=None, axis_name=None):
     return acc_long + acc_short, n_over
 
 
+def gas_gravity_pm_decomp(p_own: Particles, key_own, cell_sph,
+                          cfg: SimConfig, mesh):
+    """PM + short-range self-gravity under the slab decomposition.  The
+    long range: `pm_long_range` with decomp (the box over the ranks, this
+    slab's deposit, the pencil solve or the summed mesh), back at the own
+    rows.  The short range reaches r_cut, further than the SPH stencil, so
+    a wider rim (cfg.grav_halo_rows rows a hop, in the same SPH rank
+    space: a ball maps into a contiguous key and rank interval) is
+    exchanged, and `pm_short_range` runs whole on [left rim | own | right
+    rim] (its own slim sort and the whole-set `grav_short` kernel); the
+    own rows of its result are this slab's short-range force, provided the
+    rims covered the reach.  Own rows whose r_cut reach, ceil(r_cut /
+    cell_sph) + 1 SPH cells an axis, outran a truncated rim are counted in
+    rim_short, for the caller's decomp_pressure.  Returns (acc [nloc, 3],
+    n_window_overflow (0), rim_short).
+
+    The own rows start after the whole left rim, hops x grav_halo_rows
+    rows; the JAX package reads them from row grav_halo_rows on, which is
+    the left rim's length only at halo_hops = 1 (ROADMAP.md C)."""
+    acc_long, _, _, r_s = pm_long_range(p_own, cfg, axis_name=mesh,
+                                        decomp=True)
+    nloc = p_own.capacity
+    rim_l, rim_r = exchange_rim(key_own, p_own, mesh, cfg.grav_halo_rows,
+                                fields=("pos", "mass", "h"),
+                                hops=cfg.halo_hops)
+
+    def cat(f):
+        return torch.cat([rim_l[f], getattr(p_own, f), rim_r[f]])
+
+    key_c = torch.cat([rim_l["key"], key_own, rim_r["key"]])
+    alive_c = key_c != SENTINEL_KEY
+    pg = Particles.zeros(key_c.shape[0], p_own.pos.dtype,
+                         p_own.pos.device).replace(
+        pos=cat("pos"), mass=cat("mass"),
+        h=torch.where(alive_c, cat("h"), 1.0), alive=alive_c)
+    acc_all, n_over = pm_short_range(pg, cfg, r_s)
+    lo = rim_l["key"].shape[0]
+    acc_short = acc_all[lo:lo + nloc]
+
+    r_cut = cfg.effective_rcut_rs() * r_s
+    c_cells = torch.ceil(r_cut / torch.clamp(cell_sph, min=1.0e-12)
+                         ).to(torch.int32) + 1
+    reach = c_cells * (KX + KY + 1)
+    rim_short = rim_short_count(key_own, rim_l, rim_r, key_own - reach,
+                                key_own + reach)
+    acc = acc_long + torch.where(p_own.alive[:, None], acc_short, 0.0)
+    return acc, n_over, rim_short
+
+
 def recompute_far_field(pm_phase: Optional[int], r_s_held,
                         held_valid: bool = False) -> bool:
     """Whether a step solves the mesh anew (cfg.pm_every).  The phase is a
@@ -395,6 +548,6 @@ def gas_gravity_pm_held(p: Particles, cfg: SimConfig, pm_phase, r_s_held,
 
 __all__ = ["PM_MODES", "green_kernel_k", "grav_tables", "pm_geometry",
            "pm_long_range", "gravity_sort", "pm_short_range",
-           "gas_gravity_pm",
-           "recompute_far_field", "pm_long_range_held",
+           "gas_gravity_pm", "gas_gravity_pm_decomp", "poisson_pencil",
+           "pencil_tiles", "recompute_far_field", "pm_long_range_held",
            "gas_gravity_pm_held", "erf_approx"]

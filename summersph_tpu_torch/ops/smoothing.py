@@ -36,8 +36,11 @@ re-sums every iteration with the dense pass (`ops/density.py`), rows
 against the columns (the gathered set on several devices), and caps h at
 min(max_length, 1.25 h_max) over the live columns: half the cell of the
 hashed grid that the JAX package builds over h x 1.25 for it
-(`GRID_H_HEADROOM`).  The slab
-decomposition's separate row set (`key_rows`) is not ported.
+(`GRID_H_HEADROOM`).  Under the slab
+decomposition a rank iterates its own slab, a row set apart from its
+rim-extended columns, and re-sums it with the key_rows form of the same
+kernel (`density(cols, ..., rows=(p, key_rows))`) against the step's
+local columns and windows; h_cap comes from the global cell.
 
 Returns (particles, n_unconverged): the live particles whose last
 unclamped step still exceeded `cfg.convergence_criteria`, the
@@ -102,7 +105,8 @@ def _update_smoothing_shared(p: Particles, cfg: SimConfig,
     reuses that density.  With `active` and `act_mask` the returned
     rho/Omega mean something on the active rows only.  With `cols` and
     `offset` (gather mode) `p` is the slab of the sorted set `cols` from
-    row `offset` on."""
+    row `offset` on; with `cols` and `offset` = key_rows (the slab
+    decomposition) `p` is the row set of grid's windows into `cols`."""
     vcfg = cfg.with_(fixed_h=None)
     if cols is None:
         def dens(q):
@@ -159,12 +163,10 @@ def update_smoothing(p: Particles, cfg: SimConfig, cols=None, grid=None,
     (a `parallel.Mesh`) `p` is this rank's slab of the sorted set `cols`;
     without a grid the standalone sorted path, or with `cols` or
     neighbor_mode='dense' the dense one.  'grid' runs on the sorted
-    engine, as in `integrate`.  The slab decomposition (`key_rows`) raises
-    NotImplementedError.  Returns (particles, n_unconverged int32)."""
-    if key_rows is not None:
-        raise NotImplementedError(
-            "update_smoothing: the slab decomposition (key_rows) is not "
-            "ported to summersph_tpu_torch yet")
+    engine, as in `integrate`.  With `key_rows` too (the slab
+    decomposition) `p` is this rank's own slab, `cols` its rim-extended
+    columns and grid's windows the own row groups'.  Returns (particles,
+    n_unconverged int32)."""
     if (active is not None or act_mask is not None) and (
             grid is None or cols is not None):
         raise ValueError("update_smoothing: active/act_mask need the "
@@ -174,9 +176,10 @@ def update_smoothing(p: Particles, cfg: SimConfig, cols=None, grid=None,
         if cols is None:
             return _update_smoothing_shared(p, cfg, grid, active=active,
                                             act_mask=act_mask)
-        return _update_smoothing_shared(
-            p, cfg, grid, cols=cols,
-            offset=axis_index(axis_name) * p.capacity)
+        second = (key_rows if key_rows is not None
+                  else axis_index(axis_name) * p.capacity)
+        return _update_smoothing_shared(p, cfg, grid, cols=cols,
+                                        offset=second)
     if sorted_mode and cols is None:
         return _update_smoothing_sorted(p, cfg)
     return _update_smoothing_dense(p, cfg, cols)

@@ -146,7 +146,9 @@ def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
     origin = torch.amin(torch.where(p.alive[:, None], p.pos, torch.inf),
                         dim=0)
     origin = torch.where(torch.isfinite(origin), origin, 0.0)
-    q = cfg.cell_h_quantile
+    # 'grid' sizes its cell by h_max, as the JAX package's hashed grid
+    # does, whatever cfg.cell_h_quantile says
+    q = 1.0 if cfg.neighbor_mode == "grid" else cfg.cell_h_quantile
     if q >= 1.0:
         h_cell = torch.amax(torch.where(p.alive, p.h, 0.0))
     else:
@@ -193,16 +195,22 @@ def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
     return p_s, grid
 
 
-def group_windows(key_s: torch.Tensor, window_group: int):
+def group_windows(key_s: torch.Tensor, window_group: int,
+                  key_rows: torch.Tensor = None):
     """(starts, ends), each int32 [G, 9]: the candidate range of every
     group of `window_group` consecutive rows of the sorted keys `key_s`
     (length a multiple of it) for each plane offset -- the keys in
     [kmin + off - 1, kmax + off + 1] of the group's key span, cut at the
     first dead (sentinel) row.  Both the SPH sort and the gravity sort
-    (`pm_gravity.pm_short_range`) take their windows from here."""
-    G = key_s.shape[0] // window_group
-    kmin = key_s.view(G, window_group)[:, 0]
-    kmax = key_s.view(G, window_group)[:, -1]
+    (`pm_gravity.pm_short_range`) take their windows from here.  With
+    `key_rows` (sorted, a multiple of window_group long) the groups are
+    those rows', searched over the columns `key_s`: the slab
+    decomposition's own rows against its rim-extended columns
+    (`parallel.decomp.build_cols`)."""
+    key_rows = key_s if key_rows is None else key_rows
+    G = key_rows.shape[0] // window_group
+    kmin = key_rows.view(G, window_group)[:, 0]
+    kmax = key_rows.view(G, window_group)[:, -1]
     first_dead = torch.sum(key_s != SENTINEL_KEY).to(torch.int32)
     offs = _plane_offsets(key_s.device)
     lo = (kmin[:, None] + offs[None, :] - 1).contiguous()       # [G, 9]

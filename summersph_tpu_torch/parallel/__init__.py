@@ -1,4 +1,5 @@
-"""Multi-device runs (gather mode) over `torch.distributed`.
+"""Multi-device runs (gather mode and the slab decomposition) over
+`torch.distributed`.
 
 `comm` (the mesh and its collectives) is what the ops modules import; the
 run functions of `sharded` import `integrate`, which imports those ops

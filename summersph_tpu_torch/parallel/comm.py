@@ -18,11 +18,25 @@ the box) is taken from a collective's result, never from a rank's own sum.
 fields ride one [F, n] buffer of the float type, the integer and boolean
 fields (`pid`, `alive`) bit-cast into it (`.view`), never cast by value,
 so ids above 2^24 survive a float32 buffer.
+
+The slab decomposition (`parallel/decomp.py`) adds three: `ppermute`, a
+shift of a tensor along the ranks (`jax.lax.ppermute` with a chain
+permutation: the edge ranks receive zeros), `all_to_all_tiled`
+(`jax.lax.all_to_all(..., tiled=True)`), and `psum_scatter`
+(`jax.lax.psum_scatter` tiled along dim 0, for the pencil Poisson solve).
+
+`RESULT_BYTES` counts, per kind of collective, the bytes of every
+collective's result on this rank (an all-gather's whole output, a
+reduction's, a shift's received buffer, an all-to-all's received buffer),
+as `cuda_pairs` counts kernel launches: `reset_result_bytes` sets them to
+0.  The counts follow from the shapes alone, so they say how the traffic
+scales with N and the rim; at D = 1 nothing leaves the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -55,6 +69,20 @@ def axis_size(mesh: Mesh) -> int:
     return mesh.size
 
 
+RESULT_BYTES = {"all_gather": 0, "all_reduce": 0, "ppermute": 0,
+                "all_to_all": 0, "psum_scatter": 0}
+
+
+def reset_result_bytes():
+    """Set every count of `RESULT_BYTES` to 0."""
+    for kind in RESULT_BYTES:
+        RESULT_BYTES[kind] = 0
+
+
+def _count_bytes(kind: str, t: torch.Tensor):
+    RESULT_BYTES[kind] += t.numel() * t.element_size()
+
+
 def all_gather_tiled(t: torch.Tensor, mesh: Mesh, dim: int = 0
                      ) -> torch.Tensor:
     """Every rank's `t`, concatenated in rank order along `dim`
@@ -62,12 +90,15 @@ def all_gather_tiled(t: torch.Tensor, mesh: Mesh, dim: int = 0
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t, group=mesh.group)
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    _count_bytes("all_gather", out)
+    return out
 
 
 def _all_reduce(t: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
     out = t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=mesh.group)
+    _count_bytes("all_reduce", out)
     return out
 
 
@@ -84,6 +115,75 @@ def pmin(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def pmax(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The elementwise maximum over the ranks (`jax.lax.pmax`)."""
     return _all_reduce(t, mesh, dist.ReduceOp.MAX)
+
+
+def _peer(mesh: Mesh, rank: int) -> int:
+    """The global rank of the group's rank `rank` (point-to-point ops
+    name global ranks)."""
+    if mesh.group is None:
+        return rank
+    return dist.get_global_rank(mesh.group, rank)
+
+
+def ppermute(t: torch.Tensor, mesh: Mesh, shift: int) -> torch.Tensor:
+    """Rank d receives rank d - shift's `t`; a rank with no such source
+    receives zeros (`jax.lax.ppermute` over the chain permutation
+    [(s, s + shift)], the edges not wrapped).  One batch of point-to-point
+    ops; a rank with neither a destination nor a source makes no call
+    (every rank at D = 1)."""
+    t = t.contiguous()
+    out = torch.zeros_like(t)
+    dst, src = mesh.rank + shift, mesh.rank - shift
+    ops = []
+    if 0 <= dst < mesh.size:
+        ops.append(dist.P2POp(dist.isend, t, _peer(mesh, dst), mesh.group))
+    if 0 <= src < mesh.size:
+        ops.append(dist.P2POp(dist.irecv, out, _peer(mesh, src), mesh.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    _count_bytes("ppermute", out)
+    return out
+
+
+def _real(t: torch.Tensor) -> torch.Tensor:
+    """A complex tensor as real (a trailing dim of 2): not every backend
+    moves complex tensors."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def _all_to_all_chunks(t: torch.Tensor, mesh: Mesh, split_dim: int,
+                       kind: str) -> torch.Tensor:
+    """[D, ...]: chunk j of `t` along `split_dim` sent to rank j, and
+    position i of the result the chunk rank i sent here (one
+    `all_to_all_single`)."""
+    if t.shape[split_dim] % mesh.size:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} "
+                         f"does not split over {mesh.size} ranks")
+    send = torch.stack(torch.tensor_split(_real(t), mesh.size,
+                                          dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.group)
+    _count_bytes(kind, recv)
+    return torch.view_as_complex(recv) if t.is_complex() else recv
+
+
+def all_to_all_tiled(t: torch.Tensor, mesh: Mesh, split_dim: int,
+                     concat_dim: int) -> torch.Tensor:
+    """`jax.lax.all_to_all(t, split_axis=split_dim, concat_axis=concat_dim,
+    tiled=True)`: `t` cut into D chunks along `split_dim`, chunk j to rank
+    j, and the chunks received laid end to end in rank order along
+    `concat_dim`.  Complex tensors ride as real pairs."""
+    recv = _all_to_all_chunks(t, mesh, split_dim, "all_to_all")
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+def psum_scatter(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`jax.lax.psum_scatter(t, scatter_dimension=0, tiled=True)`: the sum
+    over the ranks of `t`, of which rank d keeps the d-th of D equal
+    slices along dim 0.  One all-to-all of the slices, then their sum in
+    rank order, the same on every backend."""
+    return _all_to_all_chunks(t, mesh, 0, "psum_scatter").sum(dim=0)
 
 
 def _as_rows(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -107,19 +207,32 @@ def _from_rows(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return out.T.reshape((-1,) + tuple(like.shape[1:])).contiguous()
 
 
+def pack_fields(fields: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[F, n]: each of `fields` (every one with n rows, floats of one type
+    or integers and booleans beside them) as rows of one buffer of the
+    float type, the integers and booleans by their bits."""
+    dtype = next(f.dtype for f in fields if f.is_floating_point())
+    return torch.cat([_as_rows(f, dtype) for f in fields])
+
+
+def unpack_fields(buf: torch.Tensor, like: Sequence[torch.Tensor]
+                  ) -> List[torch.Tensor]:
+    """Inverse of `pack_fields` for a buffer of any number of columns: the
+    fields shaped and typed as `like`."""
+    res, k = [], 0
+    for f in like:
+        width = math.prod(f.shape[1:])
+        res.append(_from_rows(buf[k:k + width], f))
+        k += width
+    return res
+
+
 def all_gather_fields(fields: Sequence[torch.Tensor], mesh: Mesh
                       ) -> List[torch.Tensor]:
-    """Each of `fields` (every one with the same number of rows, floats of
-    one type or integers and booleans beside them) gathered over the
+    """Each of `fields` (as `pack_fields` takes them) gathered over the
     ranks, in one collective of one [F, n] buffer."""
-    dtype = next(f.dtype for f in fields if f.is_floating_point())
-    rows = [_as_rows(f, dtype) for f in fields]
-    out = all_gather_tiled(torch.cat(rows), mesh, dim=1)
-    res, k = [], 0
-    for f, r in zip(fields, rows):
-        res.append(_from_rows(out[k:k + r.shape[0]], f))
-        k += r.shape[0]
-    return res
+    return unpack_fields(all_gather_tiled(pack_fields(fields), mesh, dim=1),
+                         fields)
 
 
 def gather_particles(p: Particles, mesh: Mesh) -> Particles:
@@ -132,4 +245,7 @@ def gather_particles(p: Particles, mesh: Mesh) -> Particles:
 
 
 __all__ = ["Mesh", "axis_index", "axis_size", "all_gather_tiled", "psum",
-           "pmin", "pmax", "all_gather_fields", "gather_particles"]
+           "pmin", "pmax", "ppermute", "all_to_all_tiled", "psum_scatter",
+           "pack_fields", "unpack_fields", "all_gather_fields",
+           "gather_particles", "RESULT_BYTES",
+           "reset_result_bytes"]

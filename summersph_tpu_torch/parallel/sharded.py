@@ -1,6 +1,5 @@
-"""Multi-device runs in gather mode over `torch.distributed`.  Counterpart
-of `summersph_tpu/parallel/sharded.py` (with `cfg.decomp='gather'`, its
-default).
+"""Multi-device runs over `torch.distributed`, in gather mode and in the
+slab decomposition.  Counterpart of `summersph_tpu/parallel/sharded.py`.
 
 The particle arrays are split by rows across a 1-D mesh of ranks, one
 process and one device each; sinks, t and dt are replicated.  Each step
@@ -12,8 +11,16 @@ from its rows and summed over the ranks.  Global quantities (dt, sink
 accretion and gas->sink pull, the sink-creation argmax, two health
 counters) go through the mesh's collectives (`parallel/comm.py`).  The
 dense engine (`neighbor_mode='dense'`) runs the same way against the
-gathered columns.  The slab decomposition (`cfg.decomp='slab'`) and block
-timesteps on several ranks are not ported (`integrate.check_supported`).
+gathered columns.
+
+With `cfg.decomp='slab'` (and neighbor_mode='sorted') the same drivers run
+the slab decomposition (`parallel/decomp.py`): a rank's rows are its own
+slab of the global key order, re-owned every step, and it exchanges only
+rim rows with its rank neighbours, so per-rank memory and traffic are
+O(N/D + rim).  Its per-rank capacity must be a multiple of
+max(cfg.sorted_block, 128) (pad with that granule) and at least
+cfg.halo_rows and cfg.grav_halo_rows.  Block timesteps on several ranks
+are not ported (`integrate.check_supported`).
 
 Where `shard_map` and `device_put` place a global array in the JAX
 package, here the caller starts one process a rank and the process group
@@ -21,7 +28,8 @@ package, here the caller starts one process a rank and the process group
 `file://` rendezvous), builds the same global state on every rank,
 `pad_state_to_devices` and `shard_state` it; `gather_state` rebuilds the
 global state on every rank, the counterpart of reading a sharded array
-back.  The particles come back in the sorted order of the last step, so
+back.  The particles come back in the sorted order of the last step (in
+slab mode: the slabs in rank order, each with its dead rows last), so
 compare states per pid.
 """
 
@@ -89,7 +97,8 @@ def pad_state_to_devices(state: SimState, n_devices: int,
     """Pad the particle capacity with dead slots to a multiple of
     n_devices x granule, carrying u_c and acc_ext when present.  With
     granule 128 every rank's slab stays a multiple of the sort's padding
-    granule, which the sharded sorted engine requires."""
+    granule, which gather mode's sorted engine requires; the slab
+    decomposition needs max(cfg.sorted_block, 128)."""
     old = state.particles
     cap = old.capacity
     rem = (-cap) % (n_devices * max(granule, 1))
@@ -134,8 +143,22 @@ def shard_state(state: SimState, mesh: Mesh) -> SimState:
 
 def gather_state(state: SimState, mesh: Mesh) -> SimState:
     """The global state on every rank: every rank's particle rows in rank
-    order (one collective), the replicated fields as they are."""
-    return state.replace(particles=gather_particles(state.particles, mesh))
+    order (one collective), the replicated fields as they are.  The dead
+    rows take, in ascending order, the pids that no live row holds, so
+    that each pid of [0, n) appears once: a dead row of a slab may carry
+    the pid of a particle that migrated to another rank."""
+    p = gather_particles(state.particles, mesh)
+    n = p.capacity
+    taken = torch.zeros(n, dtype=torch.bool, device=p.pid.device)
+    live = p.pid[p.alive].long()
+    taken[live[live < n]] = True
+    free = torch.nonzero(~taken).flatten()
+    dead = ~p.alive
+    if free.shape[0] == int(dead.sum()):
+        pid = p.pid.clone()
+        pid[dead] = free.to(pid.dtype)
+        p = p.replace(pid=pid)
+    return state.replace(particles=p)
 
 
 def make_sharded_prime(cfg: SimConfig, mesh: Mesh):

@@ -298,6 +298,47 @@ def test_grid_mode_matches_jax_grid_engine():
                                        err_msg=name)
 
 
+def test_grid_mode_ignores_cell_h_quantile():
+    """prime + one step with neighbor_mode='grid', variable h spread from
+    0.6 to 1.8 x h0 by radius and cell_h_quantile=0.5: the JAX hashed grid
+    sizes its cell by 2 h_max whatever the quantile says, and so does the
+    port's sorted engine under 'grid' (the quantile shrinks the cell of
+    'sorted' alone), so no large-h particle loses pairs.  Per pid against
+    JAX at test_grid_mode_matches_jax_grid_engine's tolerances, every
+    stats slot equal (sph_clamped 0 in both)."""
+    import jax.numpy as jnp
+    import summersph_tpu.integrate as jint
+    from summersph_tpu.ops.neighbors import build_grid
+
+    n = 512
+    kw = _cfg_kwargs(fixed_h=None, neighbor_mode="grid", cell_cap=256,
+                     cell_h_quantile=0.5, eta=1.2, h_iter_max=3)
+    jcfg, cfg = JaxConfig(**kw), SimConfig(**kw)
+    h0 = 100.0 * (60.0 / n) ** (1.0 / 3.0) / 2.0
+
+    jstate = jax_disc_ic(n=n, r_max=100.0, m_star=5.0, h0=h0,
+                         rotation="keplerian", cfg=jcfg, seed=0)[0]
+    r = jnp.linalg.norm(jstate.particles.pos, axis=1)
+    jstate = jstate.replace(particles=jstate.particles.replace(
+        h=h0 * (0.6 + 1.2 * r / jnp.max(r))))
+    start = tstate.from_numpy(jax_state_dict(jstate), device="cpu")
+    j1 = jint.step(jint.prime(jstate, jcfg), jcfg)
+    assert int(build_grid(j1.particles, jcfg).n_dropped) == 0
+    t1 = tint.step(tint.prime(start, cfg), cfg)
+    ours, theirs = tstate.to_numpy(t1), jax_state_dict(j1)
+    np.testing.assert_array_equal(ours["stats"], theirs["stats"])
+    assert ours["stats"][1] == 0
+    po, pt = _per_pid(ours), _per_pid(theirs)
+    np.testing.assert_array_equal(po["alive"], pt["alive"])
+    for name, rtol in (("rho", 1e-5), ("h", 1e-5), ("pos", 1e-5),
+                       ("vel", 1e-5), ("u", 1e-5)):
+        np.testing.assert_allclose(po[name], pt[name], rtol=rtol,
+                                   err_msg=name)
+    for name in ("acc", "du", "dalpha"):
+        np.testing.assert_allclose(po[name], pt[name], rtol=5e-4, atol=1e-6,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("change", [dict(pm_every=2),
                                     dict(grav_fuse_short=True)])
 def test_grid_mode_keeps_the_jax_value_errors(change):

@@ -122,23 +122,31 @@ def test_health_and_diagnostics_after_ten_steps(runs):
     dict(dt_bins=2, fixed_h=None), dict(dt_bins=2, gravity="pm"),
     dict(decomp="slab", dt_bins=2)])
 def test_unported_configurations_raise(change, one_rank_mesh):
-    """What the port still refuses: on a mesh (here of one gloo rank), the
-    slab decomposition and block timesteps.  One device runs every
+    """What the port still refuses: on a mesh (here of one gloo rank),
+    block timesteps, with or without the slab decomposition.  The slab
+    decomposition itself runs there (tests/test_torch_decomp.py holds it
+    against JAX), with 'dense' on gathered columns; one device runs every
     configuration, the dense engine included (tests/test_torch_dense.py);
     gather mode runs on several (tests/test_torch_sharded.py)."""
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     st = _ic(disc_ic, cfg)
-    with pytest.raises(NotImplementedError):
-        step(st, cfg.with_(**change), axis_name=one_rank_mesh)
+    if change.get("dt_bins", 1) > 1:
+        with pytest.raises(NotImplementedError):
+            step(st, cfg.with_(**change), axis_name=one_rank_mesh)
+    else:
+        out = step(prime(st, cfg.with_(**change), axis_name=one_rank_mesh),
+                   cfg.with_(**change), axis_name=one_rank_mesh)
+        check_health(out)
+        assert int(out.stats[6]) == 0   # decomp_pressure
 
 
 def test_multi_device_raises(one_rank_mesh):
-    """A step on a mesh with the slab decomposition raises
-    NotImplementedError; the JAX package's axis names (strings) are no
-    mesh in the port."""
+    """A step on a mesh with block timesteps raises NotImplementedError,
+    with the slab decomposition too; the JAX package's axis names
+    (strings) are no mesh in the port."""
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     with pytest.raises(NotImplementedError):
-        step(_ic(disc_ic, cfg), cfg.with_(decomp="slab"),
+        step(_ic(disc_ic, cfg), cfg.with_(decomp="slab", dt_bins=3),
              axis_name=one_rank_mesh)
     with pytest.raises(TypeError):
         step(_ic(disc_ic, cfg), cfg, axis_name="dp")

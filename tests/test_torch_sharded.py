@@ -463,9 +463,9 @@ def one_rank_mesh(tmp_path):
 
 
 def test_check_supported_refuses_only_slab_and_block_steps(one_rank_mesh):
-    """On a mesh the port refuses the slab decomposition and block
-    timesteps (NotImplementedError) when a step function is made; the dense
-    engine runs (one rank here)."""
+    """On a mesh the port refuses block timesteps (NotImplementedError)
+    when a step function is made, and nothing else: the slab
+    decomposition and the dense engine run (one rank here)."""
     from summersph_tpu_torch.models.disc import disc_ic
 
     mesh = one_rank_mesh
@@ -474,15 +474,17 @@ def test_check_supported_refuses_only_slab_and_block_steps(one_rank_mesh):
     st = disc_ic(n=96, h0=20.0, r_max=50.0, cfg=cfg, seed=3,
                  device="cpu")[0]
     st = shard_state(pad_state_to_devices(st, 1), mesh)
-    for bad in (dict(decomp="slab"), dict(dt_bins=2)):
-        for make in (make_sharded_prime, make_sharded_step,
-                     make_sharded_run_steps):
-            with pytest.raises(NotImplementedError):
-                make(cfg.with_(**bad), mesh)
+    bad = cfg.with_(dt_bins=2)
+    for make in (make_sharded_prime, make_sharded_step,
+                 make_sharded_run_steps):
         with pytest.raises(NotImplementedError):
-            sharded_run_until(st, T_STOP, cfg.with_(**bad), mesh)
-    out = make_sharded_step(cfg.with_(neighbor_mode="dense"), mesh)(st)
-    assert int(out.particles.n_alive) > 0
+            make(bad, mesh)
+    with pytest.raises(NotImplementedError):
+        sharded_run_until(st, T_STOP, bad, mesh)
+    for good in (dict(neighbor_mode="dense"),
+                 dict(decomp="slab", halo_rows=128, grav_halo_rows=128)):
+        out = make_sharded_step(cfg.with_(**good), mesh)(st)
+        assert int(out.particles.n_alive) > 0, good
 
 
 @pytest.fixture

@@ -107,20 +107,35 @@ def test_standalone_h_iteration_matches_jax():
 
 
 def test_update_smoothing_refuses_unported_paths():
-    """The slab decomposition's separate row set (key_rows) is not
-    ported; a neighbour pool without a grid (cols) is the dense path, as
-    neighbor_mode='dense' is."""
+    """The slab decomposition's separate row set (key_rows, with the rows'
+    rim-extended columns and their windows; here one slab with dead rims,
+    `parallel.decomp.slabs_in_process`) iterates h as the in-step shared
+    path does on the whole sorted set (float64: the columns sum in
+    another order); a neighbour pool without a grid (cols) is the dense
+    path, as neighbor_mode='dense' is."""
+    from summersph_tpu_torch.parallel.decomp import slabs_in_process
+
     cfg = SimConfig(**_kw())
     p = port_particles(_off_target_lattice())
-    with pytest.raises(NotImplementedError):
-        smoothing.update_smoothing(p, cfg, key_rows=p.pid)
+    p2, grid = sort_particles(p, cfg, h_pad=cfg.sort_h_pad)
+    pd = cuda_pairs.density(p2, cfg, grid)
+    ref, n_ref = smoothing.update_smoothing(pd, cfg, grid=grid)
+    key, own, cols, lgrid, short = slabs_in_process(pd, grid, cfg, 1, 128,
+                                                    cfg.sort_h_pad)[0]
+    out, n = smoothing.update_smoothing(own, cfg, cols=cols, grid=lgrid,
+                                        key_rows=key)
+    assert int(short) == 0 and int(n) == int(n_ref)
+    np.testing.assert_allclose(out.h.numpy(), ref.h.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(out.rho.numpy(), ref.rho.numpy(), rtol=1e-12)
     out, n = smoothing.update_smoothing(p, cfg, cols=p)
     ref, n_ref = smoothing.update_smoothing(
         p, cfg.with_(neighbor_mode="dense"))
     assert torch.equal(out.h, ref.h) and int(n) == int(n_ref)
-    # 'grid' runs on the sorted engine: the same h, bit for bit
+    # 'grid' runs on the sorted engine with its cell at h_max whatever
+    # cell_h_quantile says, as JAX's hashed grid: the h of 'sorted' at
+    # quantile 1, bit for bit
     out, n = smoothing.update_smoothing(p, cfg.with_(neighbor_mode="grid"))
-    ref, n_ref = smoothing.update_smoothing(p, cfg)
+    ref, n_ref = smoothing.update_smoothing(p, cfg.with_(cell_h_quantile=1.0))
     assert torch.equal(out.h, ref.h) and int(n) == int(n_ref)
 
 
