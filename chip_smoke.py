@@ -174,6 +174,21 @@ caught:
       launch of the four instantiations held against its plain version
       in float64 (`hold_exact`) and, per row, against the whole-set
       launch; their summed time beside the plain version's;
+21. the bench entry point at full size (run after phase 20, before the
+   results of phase 18): `summersph_tpu_torch.bench.main([])` in this
+   process with every BENCH_* knob at its default and BENCH_BUDGET_S wide
+   enough for every cell: the headline (N = 1,048,576, gravity 'none')
+   and bench.py's four sweep cells (TreePM grid 256 fused with pm_every
+   8, 4 and 1; N = 131,072 without gravity), each prime + 20 warm-up + 20
+   timed steps.  Every line it prints parses with bench.py's keys, the
+   first with an empty sweep, platform 'gpu' and a finite positive value,
+   the last with all four cells finite and positive; the launches of the
+   whole run are 205 density_fixed_h, 82 force_fixed_h, 123
+   force_fixed_h_grav, 205 pack_force and 59 mesh solves (7 + 11 + 41)
+   and nothing else; the headline lies within 0.5-2x phase 5's rate.  It
+   prints the five rates beside the card's name and power limit, then
+   runs `python -m summersph_tpu_torch bench --steps 2` with
+   BENCH_SWEEP=0 in a subprocess: exit code 0 and one line;
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
@@ -309,30 +324,13 @@ def reset_counts():
     pm_gravity.pm_long_range.pencil_solves = 0
 
 
-def bench_config(n, gravity="none", grav_grid=128, pm_every=1):
-    """bench.py's config (bench.py:83-119): window_group 64 without
-    gravity, 32 with it; grav_fuse_short at grav_grid >= 256."""
-    from summersph_tpu_torch.config import SimConfig
-
-    h0 = 100.0 * (60.0 / n) ** (1.0 / 3.0) / 2.0
-    cfg = SimConfig(
-        fixed_h=h0, gravity=gravity, neighbor_mode="sorted", use_pallas=True,
-        sorted_block=128, window_group=64 if gravity == "none" else 32,
-        pallas_window=256, pallas_fetch_window=768, grav_grid=grav_grid,
-        window_blocks=3, grav_window_blocks=8,
-        grav_fuse_short=gravity != "none" and grav_grid >= 256,
-        gamma=1.4, bounding_size=1500.0, dt_init=1e-4, dt_min=1e-5,
-        dt_max=1e-3, pm_every=pm_every if gravity != "none" else 1)
-    return cfg, h0
-
-
 def disc(n, device, **kw):
-    from summersph_tpu_torch.models.disc import disc_ic
+    """bench.py's disc and config (`summersph_tpu_torch.bench`): `kw` are
+    bench_config's gravity, grav_grid and pm_every."""
+    from summersph_tpu_torch.bench import bench_config, bench_disc
 
     cfg, h0 = bench_config(n, **kw)
-    state, _ = disc_ic(n=n, r_max=100.0, m_star=5.0, h0=h0,
-                       rotation="keplerian", cfg=cfg, seed=0, device=device)
-    return state, cfg
+    return bench_disc(n, cfg, h0, device), cfg
 
 
 def config5(n, device, **over):
@@ -704,17 +702,19 @@ def fused_kernel(p_sorted, grid, cfg, label, active=None):
                        + n_grav * (OPS_GRAV - OPS_GEOMETRY), active)
 
 
-def grav_kernel(p, cfg, label, plain_reps=2, active_rows=None):
+def grav_kernel(p, cfg, label, plain_reps=2, active_rows=None, r_s=None):
     """The short-range gravity kernel against its plain version on the
-    gravity sort of `p` at its mesh split; returns (err, ms, plain_ms,
-    bound_ms, by).  With `active_rows` [N] bool (in p's order) the gated
-    kernel on the worklist of the gravity-sorted groups that hold such a
-    row, as `pm_short_range` builds it."""
+    gravity sort of `p` at its mesh split (or at the split `r_s` given);
+    returns (err, ms, plain_ms, bound_ms, by).  With `active_rows` [N]
+    bool (in p's order) the gated kernel on the worklist of the
+    gravity-sorted groups that hold such a row, as `pm_short_range`
+    builds it."""
     import torch
     from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
     from summersph_tpu_torch.ops.sorted_grid import group_worklist
 
-    r_s = pm_gravity.pm_geometry(p, cfg)[2]
+    if r_s is None:
+        r_s = pm_gravity.pm_geometry(p, cfg)[2]
     pos, m, h, ggrid, perm, split = pm_gravity.gravity_sort(p, cfg, r_s)
     active, name = None, "grav_short"
     if active_rows is not None:
@@ -756,6 +756,7 @@ def pm_vs_direct(state, label):
     sum still softens up to 2h, so the size of the error depends on the
     mesh and is no pass mark."""
     import torch
+    from summersph_tpu_torch.bench import bench_config
     from summersph_tpu_torch.ops import cuda_pairs, gravity, pm_gravity
     from summersph_tpu_torch.ops.sorted_grid import sort_particles
 
@@ -1811,6 +1812,7 @@ def cli_path(dev, n, t_end):
     import numpy as np
     import torch
     from summersph_tpu_torch import cli
+    from summersph_tpu_torch.bench import bench_config
     from summersph_tpu_torch.config import SimConfig
     from summersph_tpu_torch.integrate import check_health, simulate
     from summersph_tpu_torch.io import checkpoint as ck_io
@@ -2286,7 +2288,8 @@ def slab_path(state, cfg, mesh, expect, label, check):
     (and every other pair kernel 0), `check` and the decomp and
     non-finite slots on the gathered states, the held state against one
     device per pid; then one device and gather mode timed alike from the
-    same state.  Returns the launch counts."""
+    same state.  Returns (the launch counts, this rank's end state, the
+    slab config)."""
     import torch
     from summersph_tpu_torch.integrate import init_carries, prime, run_steps
     from summersph_tpu_torch.parallel import (comm, gather_state,
@@ -2345,7 +2348,34 @@ def slab_path(state, cfg, mesh, expect, label, check):
     print(f"[{label}] ms/step: slab {slab_s * 1e3:.3f}, one device "
           f"{one_s * 1e3:.3f}, gather mode {gather_s * 1e3:.3f} (slab / one "
           f"device {slab_s / one_s:.4f}x)", flush=True)
-    return launches
+    return launches, out, scfg
+
+
+def slab_grav_short(state, cfg, mesh, label):
+    """`grav_short` as the slab decomposition launches it: whole, on the
+    local [left rim | own | right rim] set that `gas_gravity_pm_decomp`
+    builds, caught in one more slab step from `state` (this rank's),
+    against its plain version at the step's split, timed, with its
+    bound."""
+    from summersph_tpu_torch.ops import pm_gravity
+    from summersph_tpu_torch.parallel import make_sharded_step
+
+    caught = []
+    whole = pm_gravity.pm_short_range
+
+    def catch(p, c, r_s, *args, **kw):
+        caught.append((p, r_s))
+        return whole(p, c, r_s, *args, **kw)
+
+    pm_gravity.pm_short_range = catch
+    try:
+        make_sharded_step(cfg, mesh)(state)
+    finally:
+        pm_gravity.pm_short_range = whole
+    [(local, r_s)] = caught
+    print(f"[{label}] grav_short on the local set: {local.capacity} rows "
+          f"({int(local.n_alive)} live)", flush=True)
+    return grav_kernel(local, cfg, label, plain_reps=1, r_s=r_s)
 
 
 def slab_phase(n, dev):
@@ -2355,8 +2385,9 @@ def slab_phase(n, dev):
     decomposition takes its cell from a summed histogram's quantile, the
     one-device sort from the exact one: at config 5's 0.9 the two cells
     differ and so do the pairs the clamped rows lose, so the run that is
-    held against one device sizes its cell by h_max.  Returns (disc
-    launches, config 5 launches)."""
+    held against one device sizes its cell by h_max.  Then `grav_short`
+    on config 5's local set (`slab_grav_short`).  Returns (disc launches,
+    config 5 launches)."""
     import torch.distributed as dist
     from summersph_tpu_torch.parallel import make_mesh
 
@@ -2365,17 +2396,23 @@ def slab_phase(n, dev):
                             world_size=1)
     try:
         mesh = make_mesh(1)
-        disc_l = slab_path(
+        disc_l, _, _ = slab_path(
             *disc(n, dev), mesh,
             {"density_fixed_h_rows" + KEY_ROWS: evals,
              "force_fixed_h_rows" + KEY_ROWS: evals},
             f"N={n} slab mode disc", check_run)
-        c5_l = slab_path(
+        label = f"N={n} slab mode config 5"
+        c5_l, c5_out, c5_cfg = slab_path(
             *config5(n, dev, pm_every=1, cell_h_quantile=1.0), mesh,
             {"density_var_h_rows" + KEY_ROWS: evals + 2 * (evals - 1),
              "force_var_h_rows" + KEY_ROWS: evals, "grav_short": evals,
              "mesh solves": evals, "pencil solves": evals},
-            f"N={n} slab mode config 5", check_collapse)
+            label, check_collapse)
+        _, ms, plain_ms, bound_ms, by = slab_grav_short(c5_out, c5_cfg,
+                                                         mesh, label)
+        print(f"[{label}] grav_short on the local set: {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by}); "
+              f"{c5_l['grav_short']} launches in the slab run", flush=True)
     finally:
         dist.destroy_process_group()
     return disc_l, c5_l
@@ -2539,6 +2576,109 @@ def dense_phase(dev, n=DENSE_N):
           flush=True)
 
 
+# ------------------------------------------------ phase 21: the bench entry point
+
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "platform",
+              "utilization", "sweep"]
+
+
+@contextlib.contextmanager
+def bench_env(**knobs):
+    """os.environ without any BENCH_* knob but `knobs`, restored after."""
+    import os
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+def bench_lines(text, label):
+    """The JSON lines `bench` printed, each with bench.py's keys in order."""
+    lines = [json.loads(line) for line in text.splitlines()]
+    require(lines, f"{label}: no line printed")
+    for line in lines:
+        require(list(line) == BENCH_KEYS, f"{label}: keys {list(line)}")
+    return lines
+
+
+def finite_rate(x):
+    import math
+
+    return isinstance(x, float) and math.isfinite(x) and x > 0.0
+
+
+def bench_phase(n, rate_none, card):
+    """Phase 21: `summersph_tpu_torch.bench.main([])` in this process, the
+    bench knobs at their defaults and the wall budget wide enough for
+    every cell: the headline and bench.py's four sweep cells, their lines
+    parsed and checked, the launches of the whole run counted, the
+    headline within 0.5-2x phase 5's rate on the same config; then
+    `python -m summersph_tpu_torch bench --steps 2` with BENCH_SWEEP=0 as
+    a user would run it."""
+    import io
+    import os
+    from summersph_tpu_torch import bench
+
+    label = f"N={n} bench"
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with bench_env(BENCH_BUDGET_S="1e9"), contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    launches = launch_counts()
+    for line in buf.getvalue().splitlines():
+        print(f"[{label}] {line}", flush=True)
+    require(rc == 0, f"{label}: exit code {rc}")
+    lines = bench_lines(buf.getvalue(), label)
+    head, last = lines[0], lines[-1]
+    require(head["sweep"] == {} and head["platform"] == "gpu"
+            and finite_rate(head["value"]),
+            f"{label}: headline line {head}")
+    cells = bench.sweep_cells(n)
+    labels = [bench.cell_label(*cell) for cell in cells]
+    require(list(last["sweep"]) == labels
+            and all(finite_rate(v) for v in last["sweep"].values()),
+            f"{label}: sweep {last['sweep']}")
+    per_run = 1 + 2 * STEPS
+    solves = sum(1 + 2 * len(range(0, STEPS, spe))
+                 for _, sg, spe in cells if sg == "pm")
+    expect = {"density_fixed_h": 5 * per_run, "force_fixed_h": 2 * per_run,
+              "force_fixed_h_grav": 3 * per_run,
+              "pack_force": 5 * per_run, "mesh solves": solves}
+    require(nonzero(launches) == expect,
+            f"{label}: launches {nonzero(launches)}, expected {expect}")
+    require_packs(launches, label)
+    ratio = head["value"] / rate_none
+    require(0.5 <= ratio <= 2.0, f"{label}: headline {head['value']:.6e} is "
+            f"{ratio:.3f}x phase 5's {rate_none:.6e}")
+    print(f"[{label}] {time.perf_counter() - t0:.1f} s; launches "
+          f"{nonzero(launches)}; headline {ratio:.4f}x phase 5's rate",
+          flush=True)
+    for what, rate in {"headline": head["value"], **last["sweep"]}.items():
+        print(f"[{label}] {card}: {what} {rate:.6e} particle-steps/s",
+              flush=True)
+
+    with bench_env(BENCH_SWEEP="0"):
+        run = subprocess.run(
+            [sys.executable, "-m", "summersph_tpu_torch", "bench",
+             "--steps", "2"], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in run.stdout.splitlines():
+        print(f"[{label} CLI] {line}", flush=True)
+    require(run.returncode == 0, f"{label} CLI: exit code "
+            f"{run.returncode}: {run.stderr[-2000:]}")
+    [line] = bench_lines(run.stdout, f"{label} CLI")
+    require(line["platform"] == "gpu" and finite_rate(line["value"]),
+            f"{label} CLI: {line}")
+
+
 def main():
     import torch
 
@@ -2628,6 +2768,7 @@ def main():
           f" max {int(ext.max())}", flush=True)
     results = sph_kernels(p2, grid, cfg, label)
     slab_disc = (p2, grid, cfg)   # phase 19a's fixed-h state
+    rate_none = rate              # phase 21's headline is held against it
     t_disc = float(out.t)  # the disc's t after 2 x STEPS steps from the ICs
     phase_done("5 (N=1048576, gravity none)")
 
@@ -2812,6 +2953,10 @@ def main():
     results.update(key_rows_phase(slab_disc, slab_c5, f"N={n} key_rows"))
     del slab_disc, slab_c5
     phase_done("20b (N=1048576, key_rows kernels)")
+
+    # -- phase 21: the bench entry point at full size
+    bench_phase(n, rate_none, card)
+    phase_done("21 (N=1048576, the bench entry point)")
 
     # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],

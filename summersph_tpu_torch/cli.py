@@ -8,12 +8,14 @@
     python -m summersph_tpu_torch image save275.txt --out save275.png
     python -m summersph_tpu_torch resume runs/disc/checkpoint.npz \
         --out runs/disc
+    python -m summersph_tpu_torch bench [--n 1048576] [--steps 20]
 
 The subcommands, flags and defaults are those of `python -m summersph_tpu`,
 and `run` reads the reference's IC and `parameters.txt` files unchanged.
 One flag is added to each: `--device` (default `cuda`); without a card
 the default raises, and `--device cpu` runs on the CPU with the kernels'
-plain versions.  The JAX CLI's `bench` waits for a benchmark of the port.
+plain versions.  `bench` is `bench.py`'s benchmark (`bench.py` in this
+package).
 """
 
 from __future__ import annotations
@@ -150,6 +152,12 @@ def cmd_image(args):
     return 0
 
 
+def cmd_bench(args):
+    from .bench import bench
+
+    return bench(args.n, args.steps, args.gravity, args.device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .tools.make_ics import GENERATORS
 
@@ -190,6 +198,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--box", type=float, default=100.0)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_image)
+
+    p = sub.add_parser("bench", help="throughput benchmark (JSON line)")
+    p.add_argument("--n", type=int)
+    p.add_argument("--steps", type=int)
+    p.add_argument("--gravity")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_bench)
     return ap
 
 

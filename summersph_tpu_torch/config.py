@@ -14,8 +14,6 @@ no effect: `pallas_interpret`, `pallas_exact_windows`, `pallas_window`,
 window group's true candidate range, so no window size can drop a pair.
 `use_pallas` only keeps the JAX package's rule that `grav_fuse_short`
 needs it; `grav_fft='matmul'` names the one `torch.fft` path.
-Configurations the port does not run yet raise `NotImplementedError` at
-the first force evaluation (`integrate.check_supported`).
 `neighbor_mode='grid'` runs on the sorted engine: the hashed grid exists
 in the JAX package for the TPU's gather costs, and both engines sum the
 same pairs.

@@ -14,7 +14,8 @@ Counterpart of `summersph_tpu/integrate.py`.  One step:
     sink accretion ; [sink merging] ; bounds cull ; health counters
 
 With `cfg.dt_bins > 1` `run_steps` advances by base steps of the
-block-timestep engine instead (`blockstep.py`).
+block-timestep engine instead (`blockstep.py`), on one device only: on a
+mesh it runs the global step, as the JAX package's sharded steps do.
 
 With `cfg.reuse_forces` (the default) the rates of the previous step's
 evaluation feed the first half-kick, so a step evaluates forces once and
@@ -56,8 +57,11 @@ slab and solved by the pencil solve, and the short range runs whole on a
 wider rim.  Per-rank memory and traffic are O(N/D + rim).  Every health
 counter but sink_slots_full is then the rank's own and is summed, and
 decomp_pressure counts the slabs' capacity pressure.  'grid' and 'dense'
-keep their gathered columns, as in the JAX package.  Block timesteps on
-several ranks raise `NotImplementedError` (`check_supported`).
+keep their gathered columns, as in the JAX package.  With `cfg.dt_bins >
+1` the ranks take global steps, as `summersph_tpu/parallel/sharded.py:
+148-174` does: `init_carries` still attaches the held far field with PM
+gravity (`summersph_tpu/integrate.py:630-640`), and `pm_phase = i %
+pm_every` decides each solve.
 """
 
 from __future__ import annotations
@@ -91,19 +95,14 @@ from .state import Particles, SimState, Sinks
 
 
 def check_supported(cfg: SimConfig, axis_name: Optional[Mesh] = None):
-    """Raise NotImplementedError for a configuration the port does not run
-    on several devices: block timesteps (the JAX package's sharded drivers
-    run the global step whatever dt_bins says; ROADMAP.md).  `axis_name`
-    is a `parallel.Mesh` or None."""
-    if axis_name is None:
-        return
-    if not isinstance(axis_name, Mesh):
+    """Raise TypeError for an `axis_name` that is not a `parallel.Mesh`
+    (the JAX package's axis names are strings).  Every configuration runs
+    on a mesh; with cfg.dt_bins > 1 it takes global steps there, as the
+    JAX package's sharded steps do (`summersph_tpu/parallel/sharded.py:
+    148-174`)."""
+    if axis_name is not None and not isinstance(axis_name, Mesh):
         raise TypeError(f"axis_name must be a parallel.Mesh (make_mesh), "
                         f"not {axis_name!r}")
-    if cfg.dt_bins > 1:
-        raise NotImplementedError(
-            f"block timesteps (dt_bins={cfg.dt_bins}) do not run on several "
-            f"devices in summersph_tpu_torch")
 
 
 def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
@@ -521,14 +520,16 @@ def prime(state: SimState, cfg: SimConfig,
 
 def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
               axis_name: Optional[Mesh] = None) -> SimState:
-    """Advance exactly n_steps: global steps, or with cfg.dt_bins > 1 base
-    steps of the block-timestep engine (`blockstep.step_binned`).  The
-    far-field phase is step % pm_every, pinned to this call: its first step
-    solves the mesh, so a resumed state never starts from a stale held
-    force, and the later steps know their held force is valid.  The
+    """Advance exactly n_steps: global steps, or, with cfg.dt_bins > 1 on
+    one device, base steps of the block-timestep engine
+    (`blockstep.step_binned`).  The far-field phase is step % pm_every,
+    pinned to this call: its first step solves the mesh, so a resumed
+    state never starts from a stale held force, and the later steps know
+    their held force is valid.  The
     returned `stats` is the running maximum of the per-step counters over
     these steps, so one bad step cannot hide.  With `axis_name` (a
-    `parallel.Mesh`) the steps of this rank's rows."""
+    `parallel.Mesh`) the global steps of this rank's rows, whatever
+    dt_bins says."""
     from .blockstep import _step_binned  # blockstep imports this module
 
     check_supported(cfg, axis_name)
@@ -536,7 +537,7 @@ def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
     state = state.replace(stats=torch.zeros_like(state.stats))
     every = max(cfg.pm_every, 1)
     for i in range(n_steps):
-        if cfg.dt_bins > 1:
+        if cfg.dt_bins > 1 and axis_name is None:
             out = _step_binned(state, cfg, i % every, held_valid=i > 0)
         else:
             out = _step(state, cfg, axis_name, i % every, held_valid=i > 0)

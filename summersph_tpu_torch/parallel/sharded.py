@@ -19,8 +19,9 @@ slab of the global key order, re-owned every step, and it exchanges only
 rim rows with its rank neighbours, so per-rank memory and traffic are
 O(N/D + rim).  Its per-rank capacity must be a multiple of
 max(cfg.sorted_block, 128) (pad with that granule) and at least
-cfg.halo_rows and cfg.grav_halo_rows.  Block timesteps on several ranks
-are not ported (`integrate.check_supported`).
+cfg.halo_rows and cfg.grav_halo_rows.  With cfg.dt_bins > 1 the ranks
+take global steps, as the JAX package's sharded steps do
+(`summersph_tpu/parallel/sharded.py:148-174`).
 
 Where `shard_map` and `device_put` place a global array in the JAX
 package, here the caller starts one process a rank and the process group

@@ -1,8 +1,9 @@
 """The port's command line, tools and small models against the JAX
-package's: the argparse flags of `run`, `resume`, `make-ics` and `image`,
-the files `run` writes, `resume`'s config, the `make-ics` bytes, the
-density grid, the Sod and ring models and the Sod L2 on the sorted engine;
-and `run --neighbor-mode dense` against the sorted engine's run.
+package's: the argparse flags of `run`, `resume`, `make-ics`, `image` and
+`bench` (tests/test_torch_bench.py holds its runs), the files `run`
+writes, `resume`'s config, the `make-ics` bytes, the density grid, the Sod
+and ring models and the Sod L2 on the sorted engine; and `run
+--neighbor-mode dense` against the sorted engine's run.
 """
 
 import argparse
@@ -19,7 +20,7 @@ from summersph_tpu_torch.io import load_npz_with_config
 
 from test_torch_config_state import jax_state_dict
 
-SUBCOMMANDS = ("run", "resume", "make-ics", "image")
+SUBCOMMANDS = ("run", "resume", "make-ics", "image", "bench")
 N_IC, H_IC = 512, 15.0     # ~14 neighbours a particle in the r=100 disc
 
 
@@ -60,9 +61,7 @@ def test_flags_match_the_jax_cli(cmd, monkeypatch):
     device = ours_cmd.pop("device")
     assert device[:2] == (("--device",), "cuda")
     assert ours_cmd == _actions(theirs[cmd])
-    # bench waits for a benchmark of the port: the one subcommand left out
-    assert set(theirs) - set(ours) == {"bench"}
-    assert set(ours) == set(SUBCOMMANDS)
+    assert set(theirs) == set(ours) == set(SUBCOMMANDS)
 
 
 def test_no_card_raises_unless_the_cpu_is_asked_for(tmp_path):

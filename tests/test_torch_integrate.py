@@ -122,32 +122,39 @@ def test_health_and_diagnostics_after_ten_steps(runs):
     dict(dt_bins=2, fixed_h=None), dict(dt_bins=2, gravity="pm"),
     dict(decomp="slab", dt_bins=2)])
 def test_unported_configurations_raise(change, one_rank_mesh):
-    """What the port still refuses: on a mesh (here of one gloo rank),
-    block timesteps, with or without the slab decomposition.  The slab
-    decomposition itself runs there (tests/test_torch_decomp.py holds it
-    against JAX), with 'dense' on gathered columns; one device runs every
-    configuration, the dense engine included (tests/test_torch_dense.py);
-    gather mode runs on several (tests/test_torch_sharded.py)."""
+    """The port refuses none of these on a mesh (here of one gloo rank):
+    the slab decomposition runs there (tests/test_torch_decomp.py holds it
+    against JAX), with 'dense' on gathered columns, and block timesteps
+    take the global step of dt_bins 1, as the JAX package's sharded
+    steps do, bit for bit.  One device runs every configuration, the
+    dense engine included (tests/test_torch_dense.py); gather mode runs on
+    several (tests/test_torch_sharded.py)."""
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
     st = _ic(disc_ic, cfg)
+
+    def one_step(c):
+        return step(prime(st, c, axis_name=one_rank_mesh), c,
+                    axis_name=one_rank_mesh)
+
+    out = one_step(cfg.with_(**change))
+    check_health(out)
+    assert int(out.stats[6]) == 0   # decomp_pressure
     if change.get("dt_bins", 1) > 1:
-        with pytest.raises(NotImplementedError):
-            step(st, cfg.with_(**change), axis_name=one_rank_mesh)
-    else:
-        out = step(prime(st, cfg.with_(**change), axis_name=one_rank_mesh),
-                   cfg.with_(**change), axis_name=one_rank_mesh)
-        check_health(out)
-        assert int(out.stats[6]) == 0   # decomp_pressure
+        ref = one_step(cfg.with_(**{**change, "dt_bins": 1}))
+        for name in ("pid", "pos", "vel", "u", "rho", "h", "acc"):
+            assert torch.equal(getattr(out.particles, name),
+                               getattr(ref.particles, name)), name
+        assert torch.equal(out.t, ref.t) and torch.equal(out.dt, ref.dt)
 
 
 def test_multi_device_raises(one_rank_mesh):
-    """A step on a mesh with block timesteps raises NotImplementedError,
-    with the slab decomposition too; the JAX package's axis names
-    (strings) are no mesh in the port."""
+    """The JAX package's axis names (strings) are no mesh in the port:
+    a step on one raises TypeError.  A step on a mesh with block
+    timesteps and the slab decomposition runs (the global step)."""
     cfg = SimConfig(**{**_cfg_kwargs(), "dtype": "float32"})
-    with pytest.raises(NotImplementedError):
-        step(_ic(disc_ic, cfg), cfg.with_(decomp="slab", dt_bins=3),
-             axis_name=one_rank_mesh)
+    out = step(_ic(disc_ic, cfg), cfg.with_(decomp="slab", dt_bins=3),
+               axis_name=one_rank_mesh)
+    assert int(out.particles.n_alive) == N
     with pytest.raises(TypeError):
         step(_ic(disc_ic, cfg), cfg, axis_name="dp")
 

@@ -162,6 +162,11 @@ CASES = {
     # span all four ranks' slabs
     "sorted_pm_var_h_sink": (_tiny_kw("pm", None), SORTED_KW, "until", 3,
                              448),
+    # (d) (b) with block timesteps asked for, run until T_STOP: on a mesh
+    # both packages take global steps
+    "sorted_pm_fixed_h_dt_bins": (_tiny_kw("pm", 20.0),
+                                  {**SORTED_KW, "dt_bins": 2}, "until", 3,
+                                  96),
 }
 
 
@@ -251,8 +256,9 @@ def _jax_sharded(name):
 def test_four_ranks_match_jax_shard_map(sharded_runs, name):
     """(a) the 'grid' config, which the port runs on the sharded sorted
     engine, (b) the sorted engine with TreePM and fixed h, (c) variable h
-    with accretion, `sharded_run_until` to T_STOP: 4 gloo ranks against
-    JAX's shard_map on 4 devices, per pid."""
+    with accretion, `sharded_run_until` to T_STOP, (d) (b) with dt_bins 2
+    run until T_STOP: 4 gloo ranks against JAX's shard_map on 4 devices,
+    per pid."""
     theirs = _jax_sharded(name)
     ours = sharded_runs[4][name]
     _hold(ours, theirs, name)
@@ -462,29 +468,72 @@ def one_rank_mesh(tmp_path):
         dist.destroy_process_group()
 
 
-def test_check_supported_refuses_only_slab_and_block_steps(one_rank_mesh):
-    """On a mesh the port refuses block timesteps (NotImplementedError)
-    when a step function is made, and nothing else: the slab
-    decomposition and the dense engine run (one rank here)."""
+def _one_rank_disc(mesh, cfg):
     from summersph_tpu_torch.models.disc import disc_ic
+
+    st = disc_ic(n=96, h0=20.0, r_max=50.0, cfg=cfg, seed=3,
+                 device="cpu")[0]
+    return shard_state(pad_state_to_devices(st, 1), mesh)
+
+
+def test_check_supported_refuses_only_slab_and_block_steps(one_rank_mesh):
+    """On a mesh the port refuses no configuration (one rank here): the
+    slab decomposition, the dense engine and block timesteps run; only an
+    axis name that is no `parallel.Mesh` (a JAX axis name) is refused,
+    with TypeError."""
+    from summersph_tpu_torch.integrate import check_supported
 
     mesh = one_rank_mesh
     kw, over = CASES["sorted_pm_var_h_sink"][:2]
     cfg = SimConfig(**{**kw, **over})
-    st = disc_ic(n=96, h0=20.0, r_max=50.0, cfg=cfg, seed=3,
-                 device="cpu")[0]
-    st = shard_state(pad_state_to_devices(st, 1), mesh)
-    bad = cfg.with_(dt_bins=2)
-    for make in (make_sharded_prime, make_sharded_step,
-                 make_sharded_run_steps):
-        with pytest.raises(NotImplementedError):
-            make(bad, mesh)
-    with pytest.raises(NotImplementedError):
-        sharded_run_until(st, T_STOP, bad, mesh)
+    st = _one_rank_disc(mesh, cfg)
     for good in (dict(neighbor_mode="dense"),
-                 dict(decomp="slab", halo_rows=128, grav_halo_rows=128)):
+                 dict(decomp="slab", halo_rows=128, grav_halo_rows=128),
+                 dict(dt_bins=2),
+                 dict(decomp="slab", halo_rows=128, grav_halo_rows=128,
+                      dt_bins=2)):
+        check_supported(cfg.with_(**good), mesh)
         out = make_sharded_step(cfg.with_(**good), mesh)(st)
         assert int(out.particles.n_alive) > 0, good
+    with pytest.raises(TypeError):
+        check_supported(cfg, "dp")
+
+
+@pytest.mark.parametrize("pm_every", [1, 2])
+def test_block_steps_on_a_mesh_take_global_steps(one_rank_mesh, pm_every):
+    """With dt_bins 2 on a mesh, `make_sharded_prime`, `make_sharded_step`,
+    `make_sharded_run_steps` and `sharded_run_until` take the global steps
+    of dt_bins 1 on the same mesh, bit for bit per pid; with PM gravity
+    the held far field is carried (acc_ext, pm_r_s), and with pm_every 2
+    it is held between solves as with dt_bins 1."""
+    mesh = one_rank_mesh
+    kw, over = CASES["sorted_pm_var_h_sink"][:2]
+    base = SimConfig(**{**kw, **over, "pm_every": pm_every})
+    st = init_carries(_one_rank_disc(mesh, base), base.with_(dt_bins=2))
+    assert st.particles.acc_ext is not None and st.pm_r_s is not None
+    runs = {}
+    for bins in (1, 2):
+        cfg = base.with_(dt_bins=bins)
+        primed = make_sharded_prime(cfg, mesh)(st)
+        runs[bins] = {
+            "step": make_sharded_step(cfg, mesh)(primed),
+            "run_steps": make_sharded_run_steps(cfg, mesh, n_steps=3)(primed),
+            "until": sharded_run_until(primed, T_STOP, cfg, mesh,
+                                       steps_per_sync=2)}
+    assert float(runs[2]["until"].t) >= T_STOP
+    for how, out in runs[2].items():
+        assert out.particles.acc_ext is not None and out.pm_r_s is not None
+        ours = tstate.to_numpy(gather_state(out, mesh))
+        ref = tstate.to_numpy(gather_state(runs[1][how], mesh))
+        a, b = _by_pid(ours["particles"]), _by_pid(ref["particles"])
+        for name in ("pid", "alive", "pos", "vel", "u", "rho", "h", "acc"):
+            np.testing.assert_array_equal(a[name], b[name],
+                                          err_msg=f"{how}: {name}")
+        for name in ("t", "dt", "stats"):
+            np.testing.assert_array_equal(ours[name], ref[name],
+                                          err_msg=f"{how}: {name}")
+        np.testing.assert_array_equal(ours["sinks"]["mass"],
+                                      ref["sinks"]["mass"], err_msg=how)
 
 
 @pytest.fixture
