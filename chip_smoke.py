@@ -51,15 +51,16 @@ caught:
    with no full slots, no non-finite particle, gas lost equal to gas
    accreted and the total mass conserved to 1e-5;
 11. the slice's path at full size: config 5 as built by
-   scripts/config5_run.py at N = 1,048,576 (variable h, TreePM grid 128
+   scripts/config5_run.py (its port, `tools.config5.build`, which the other
+   config 5 phases take too) at N = 1,048,576 (variable h, TreePM grid 128
    separate, pm_every 4, 128 sink slots, merging): prime, run_steps(20)
    warm-up, run_steps(20) timed; 121 density_var_h, 41 force_var_h, 41
    grav_short launches and 11 mesh solves, no fixed-h kernel; the window,
    non-finite and sink-slot counters 0 (sph_clamped and h_unconverged are
    printed: the JAX package counts them too); check_health, mass
-   conservation, particle-steps/s, peak memory, a layer breakdown, the
-   busy share, and both variable-h kernels against their plain versions
-   at these shapes;
+   conservation, particle-steps/s, peak memory, a layer breakdown, the busy
+   share, and both variable-h kernels against their plain versions at these
+   shapes;
 12. the seven gated kernels (block timesteps) at N = 131,072, on the
    states of phases 3, 4 and 8 with the rows of the lowest quarter in x
    active: each against its gated plain version (cancelling sums in
@@ -189,6 +190,24 @@ caught:
    prints the five rates beside the card's name and power limit, then
    runs `python -m summersph_tpu_torch bench --steps 2` with
    BENCH_SWEEP=0 in a subprocess: exit code 0 and one line;
+22. reproducible TreePM runs and config 5 in segments (run after phase 21,
+   before the results of phase 18):
+   a. phase 7's separate path (grid 128, pm_every 1) and phase 6's fused
+      path (grid 256, pm_every 8) at N = 1,048,576, each primed once and
+      run REPRO_STEPS steps twice from copies of that state: the end
+      states equal bit for bit in every field; on each end state the CIC
+      deposit (integer fixed point) twice, equal bit for bit, its time
+      beside the float `index_add_` form (kept here only as its
+      yardstick), both against the float64 sum of the same corner values,
+      and whether two float `index_add_`s are equal (printed);
+   b. `summersph_tpu_torch.tools.config5.run` at N = 1,048,576 in a
+      temporary directory, 16 steps a segment: 3 segments uninterrupted,
+      and 2 segments, the checkpoint, then 1 resumed segment; the two end
+      checkpoints equal bit for bit in every field, both 15-column ledgers
+      equal but for the wall column, the ms a step, and the launches of
+      the three runs (counts reset just before and read just after: 290
+      density_var_h, 98 force_var_h, 98 grav_short, 98 pack_force, 26
+      mesh solves, nothing else);
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
@@ -334,27 +353,14 @@ def disc(n, device, **kw):
 
 
 def config5(n, device, **over):
-    """scripts/config5_run.py's build() at N = n (h0 = (2^20 / n)^(1/3)),
-    with `over` replacing config knobs; the TPU-only window knobs are
-    accepted and have no effect.  Returns (state, cfg)."""
-    from summersph_tpu_torch.config import SimConfig
-    from summersph_tpu_torch.models.disc import disc_ic
+    """`summersph_tpu_torch.tools.config5.build` (scripts/config5_run.py's
+    build() at N = n, h0 = (2^20 / n)^(1/3)), with `over` replacing config
+    knobs that the ICs do not read; the TPU-only window knobs are accepted
+    and have no effect.  Returns (state, cfg)."""
+    from summersph_tpu_torch.tools.config5 import build
 
-    h0 = (1_048_576 / n) ** (1.0 / 3.0)
-    cfg = SimConfig(
-        fixed_h=None, eta=1.2, h_iter_max=3, convergence_criteria=1e-3,
-        max_length=1.5 * h0, cell_h_quantile=0.9, gravity="pm",
-        grav_grid=128, theta=0.5, neighbor_mode="sorted", use_pallas=True,
-        sorted_block=128, window_group=32, pallas_window=256,
-        pallas_fetch_window=2560, grav_pallas_window=1024,
-        grav_pallas_fetch=8448, grav_overflow_items=65536, window_blocks=3,
-        grav_window_blocks=8, gamma=1.1, bounding_size=1500.0,
-        sink_capacity=128, sink_merge_factor=1.0, kahan_u=True, pm_every=4,
-        dt_init=1e-4, dt_min=1e-7, dt_max=5e-3, end_time=12.0).with_(**over)
-    state, _ = disc_ic(n=n, r_max=50.0, m_disc=50.0, m_star=0.0, u0=0.25,
-                       rotation="rigidbody", v_circ=4.2, h0=h0, cfg=cfg,
-                       seed=0, device=device)
-    return state, cfg
+    state, cfg = build(n, device=device)
+    return state, cfg.with_(**over)
 
 
 def clustered(n, device):
@@ -2679,6 +2685,142 @@ def bench_phase(n, rate_none, card):
             f"{label} CLI: {line}")
 
 
+# ---------------------------------- phase 22: reproducible TreePM runs
+REPRO_STEPS = 10   # phase 22a: steps of each run from one state
+
+
+def float_deposit(pos, mass, origin, cell, n, dtype=None):
+    """The CIC deposit as one float `index_add_` of the 8 corners: the
+    port's form before its fixed point, on the card an atomic add whose
+    order changes from run to run.  Kept here only as the yardstick of
+    `pm_gravity._cic_deposit`.  With `dtype` the same corner values are
+    summed in that dtype."""
+    import torch
+    from summersph_tpu_torch.ops.pm_gravity import _cic_corners
+
+    flat, w = zip(*_cic_corners(pos, origin, cell, n))
+    vals = torch.cat([mass * wx for wx in w]).to(dtype or mass.dtype)
+    rho = torch.zeros(n * n * n, dtype=vals.dtype, device=mass.device)
+    rho.index_add_(0, torch.cat(flat), vals)
+    return rho.reshape(n, n, n)
+
+
+def differing_fields(a, b):
+    """The fields of two states (particles, sinks, t, dt, stats, pm_r_s)
+    that differ in any bit; [] when the states are equal."""
+    from summersph_tpu_torch.state import to_numpy
+
+    def fields(state):
+        d = to_numpy(state)
+        out = {f"{g}.{k}": v for g in ("particles", "sinks")
+               for k, v in d.pop(g).items()}
+        out.update(d)
+        return out
+
+    fa, fb = fields(a), fields(b)
+    return sorted(k for k in fa.keys() | fb.keys()
+                  if k not in fa or k not in fb
+                  or fa[k].dtype != fb[k].dtype or fa[k].shape != fb[k].shape
+                  or fa[k].tobytes() != fb[k].tobytes())
+
+
+def rerun_bitwise(state, cfg, label, steps=REPRO_STEPS):
+    """prime, then run_steps(steps) twice from copies of the primed state;
+    the two end states must be equal bit for bit.  Returns one of them."""
+    from summersph_tpu_torch.integrate import prime, run_steps
+    from summersph_tpu_torch.state import from_numpy, to_numpy
+
+    start = to_numpy(prime(state, cfg))
+    dev = state.particles.pos.device
+    outs = [run_steps(from_numpy(start, dev), cfg, steps) for _ in range(2)]
+    diff = differing_fields(*outs)
+    require(not diff, f"{label}: two runs from one state differ in {diff}")
+    print(f"[{label}] two runs of {steps} steps from one primed state: "
+          f"equal bit for bit in every field", flush=True)
+    return outs[0]
+
+
+def deposit_check(p, cfg, label):
+    """The fixed-point deposit on `p` at cfg's grid: two calls equal bit
+    for bit; its time beside the float `index_add_` (CUDA events, mean of
+    10 calls); both against the float64 sum of the same corner values;
+    whether two float `index_add_`s are equal (printed)."""
+    import torch
+    from summersph_tpu_torch.ops import pm_gravity
+
+    n = cfg.grav_grid
+    origin, cell, _ = pm_gravity.pm_geometry(p, cfg)
+    m = torch.where(p.alive, p.mass, 0.0)
+
+    def fixed():
+        return pm_gravity._cic_deposit(p.pos, m, origin, cell, n)
+
+    def old():
+        return float_deposit(p.pos, m, origin, cell, n)
+
+    a, b = fixed(), fixed()
+    require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+            f"{label}: two fixed-point deposits differ")
+    c, d = old(), old()
+    exact = float_deposit(p.pos, m, origin, cell, n, torch.float64)
+    scale = float(exact.abs().max())
+    ms, old_ms = cuda_ms(fixed, 10), cuda_ms(old, 10)
+    print(f"[{label}] CIC deposit, grid {n}, N={p.capacity}: fixed point "
+          f"{ms:.4f} ms, float index_add_ {old_ms:.4f} ms "
+          f"({ms / old_ms:.3f}x); two fixed-point deposits equal bit for "
+          f"bit; two index_add_ deposits equal: {torch.equal(c, d)} (max "
+          f"difference {float((c - d).abs().max()):.3e}); against the "
+          f"float64 sum, max |difference| / max: fixed point "
+          f"{float((a.double() - exact).abs().max()) / scale:.3e}, "
+          f"index_add_ {float((c.double() - exact).abs().max()) / scale:.3e}",
+          flush=True)
+
+
+def config5_segments(n, dev, label, steps_per_seg=16):
+    """Phase 22b: `tools.config5.run` in a temporary directory, 3 segments
+    uninterrupted, and 2 segments, the checkpoint, then 1 resumed segment:
+    the two end checkpoints equal bit for bit in every field, both
+    15-column ledgers equal but for the wall column.  Returns the launch
+    counts of the three runs."""
+    import csv
+    import os
+    import tempfile
+    from summersph_tpu_torch.io.checkpoint import load_npz
+    from summersph_tpu_torch.tools import config5
+
+    kw = dict(steps_per_seg=steps_per_seg, device=dev, n=n)
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, split = os.path.join(tmp, "whole"), os.path.join(tmp, "split")
+        for out, fresh, segs in ((whole, True, 3), (split, True, 2),
+                                 (split, False, 1)):
+            code = config5.run(out, fresh=fresh, max_segments=segs, **kw)
+            require(code == 0, f"{label}: config5.run exit code {code}")
+        launches = launch_counts()
+        diff = differing_fields(
+            *(load_npz(os.path.join(d, "checkpoint.npz"), device="cpu")
+              for d in (whole, split)))
+        require(not diff, f"{label}: the resumed run differs from the "
+                f"uninterrupted one in {diff}")
+        ledgers = []
+        for d in (whole, split):
+            with open(os.path.join(d, "ledger.csv")) as fh:
+                ledgers.append(list(csv.reader(fh)))
+    for rows in ledgers:
+        require(len(rows) == 4 and rows[0] == config5.LEDGER_COLUMNS
+                and all(len(r) == 15 for r in rows),
+                f"{label}: ledger {rows}")
+    require([r[:-1] for r in ledgers[0]] == [r[:-1] for r in ledgers[1]],
+            f"{label}: ledgers differ: {ledgers}")
+    wall = sum(float(r[-1]) for r in ledgers[0][1:])
+    print(f"[{label}] 2 segments + checkpoint + 1 resumed segment equal 3 "
+          f"uninterrupted segments bit for bit in every field; ledger rows "
+          f"equal but for wall_s; {wall / (3 * steps_per_seg) * 1e3:.1f} ms "
+          f"a step (the ledger's wall column); launches "
+          f"{nonzero(launches)}", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -2957,6 +3099,25 @@ def main():
     # -- phase 21: the bench entry point at full size
     bench_phase(n, rate_none, card)
     phase_done("21 (N=1048576, the bench entry point)")
+
+    # -- phase 22: reproducible TreePM runs; config 5 in segments
+    for kw, what in (({"grav_grid": 128, "pm_every": 1}, "separate grid 128"),
+                     ({"grav_grid": 256, "pm_every": 8}, "fused grid 256")):
+        label = f"N={n} pm {what}"
+        state, cfg = disc(n, dev, gravity="pm", **kw)
+        deposit_check(rerun_bitwise(state, cfg, label).particles, cfg, label)
+    phase_done("22a (N=1048576, TreePM runs twice)")
+    # config 5's own path, run by the tool: 2 primes and 6 segments of 16
+    c5_seg = config5_segments(n, dev, f"N={n} config 5 segments")
+    steps, primes = 6 * 16, 2
+    expect = {"density_var_h": primes + 3 * steps,
+              "force_var_h": primes + steps, "grav_short": primes + steps,
+              "pack_force": primes + steps,
+              "mesh solves": primes + 6 * len(range(0, 16, 4))}
+    require(nonzero(c5_seg) == expect,
+            f"config 5 segments: launches {nonzero(c5_seg)}, expected "
+            f"{expect}")
+    phase_done("22b (N=1048576, config 5 segments)")
 
     # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],

@@ -7,8 +7,9 @@ the method:
   F_total(r) = F_long(r) + F_short(r)
 
 * F_long (`pm_long_range`): cloud-in-cell deposit on a `grav_grid`^3 mesh
-  over the live bounding cube (`index_add_`), the isolated-boundary
-  (Hockney-Eastwood) Poisson solve on the 2x zero-padded grid with
+  over the live bounding cube (integer `index_add_`s of a fixed point:
+  the same bits on every run), the isolated-boundary (Hockney-Eastwood)
+  Poisson solve on the 2x zero-padded grid with
   `torch.fft.rfftn`/`irfftn` and the scale-free Green's table
   (`green_kernel_k`), the force by 4th-order finite differences
   (`grav_gradient='fd'`) or the spectral gradient, and CIC interpolation
@@ -139,13 +140,49 @@ def _cic_corners(pos, origin, cell, n):
                 yield (ix * n + iy) * n + iz, wx * wy * wz
 
 
+# The deposit sums in integer fixed point: integer addition does not
+# depend on its order, while a float `index_add_` on the card is an atomic
+# add whose order, and so whose rounding, changes from run to run.  A
+# corner's m w, scaled by 2^k so that the deposited mass stays under 2^61,
+# splits into its integer part (the high word) and its fraction at 2^-j
+# (the low word, j as large as the count of terms lets a cell's sum stay
+# under 2^62).
+_HIGH_BITS = 61
+_MAX_SCALE = 100   # 2^k and 2^-k stay normal float32 numbers
+
+
+def _pow2(k, dtype):
+    """2^k in `dtype` exactly, from the exponent bits (k an integer
+    tensor within the float's normal range)."""
+    if dtype == torch.float64:
+        return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+    if dtype == torch.float32:
+        return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+    raise TypeError(f"the CIC deposit sums float32 or float64, not {dtype}")
+
+
 def _cic_deposit(pos, mass, origin, cell, n):
-    """CIC (trilinear) mass deposit onto an [n, n, n] mesh, one
-    `index_add_` of the 8 corners of every particle."""
+    """CIC (trilinear) mass deposit onto an [n, n, n] mesh: the 8 corners
+    of every particle summed by two int64 `index_add_`s of a two-word
+    fixed point, so the mesh has the same bits on every run and for every
+    order of the rows.  The scale comes from the summed mass on the
+    device, with no host read."""
     flat, w = zip(*_cic_corners(pos, origin, cell, n))
-    rho = torch.zeros(n * n * n, dtype=mass.dtype, device=mass.device)
     vals = torch.cat([mass * wx for wx in w])
-    rho.index_add_(0, torch.cat(flat), vals)
+    idx = torch.cat(flat)
+    dtype = vals.dtype
+    low_bits = 62 - vals.shape[0].bit_length()
+    _, e = torch.frexp(torch.sum(torch.abs(mass)))
+    k = torch.clamp(_HIGH_BITS - e, -_MAX_SCALE, _MAX_SCALE)
+    y = vals * _pow2(k, dtype)
+    high = torch.floor(y)
+    low = torch.round((y - high) * 2.0 ** low_bits)
+    acc_high = torch.zeros(n * n * n, dtype=torch.int64, device=vals.device)
+    acc_low = torch.zeros_like(acc_high)
+    acc_high.index_add_(0, idx, high.to(torch.int64))
+    acc_low.index_add_(0, idx, low.to(torch.int64))
+    rho = ((acc_high.to(dtype) + acc_low.to(dtype) * 2.0 ** -low_bits)
+           * _pow2(-k, dtype))
     return rho.reshape(n, n, n)
 
 

@@ -1,3 +1,3 @@
-from . import density_image, make_ics
+from . import config5, density_image, make_ics
 
-__all__ = ["density_image", "make_ics"]
+__all__ = ["config5", "density_image", "make_ics"]

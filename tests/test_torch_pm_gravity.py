@@ -120,6 +120,32 @@ def test_mesh_operators_match_jax(name):
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cic_deposit_is_independent_of_row_order(dtype):
+    """The deposit sums a fixed point in integers, so the mesh of permuted
+    rows has the same bits as the mesh of the rows in order (a float
+    `index_add_` rounds by the order of its additions, on the card a new
+    one every run); it lies within float32 rounding of a float64 sum."""
+    rng = np.random.default_rng(11)
+    n, npart = 16, 4096
+    pos = torch.from_numpy(rng.standard_normal((npart, 3)) * 10.0)
+    mass = torch.from_numpy(rng.random(npart) / npart + 0.5 / npart)
+    cell = (pos.amax(0) - pos.amin(0)).amax() / (n - 3)
+    origin = pos.amin(0) - 1.5 * cell
+    perm = torch.from_numpy(rng.permutation(npart))
+    args = [a.to(dtype) for a in (pos, mass, origin, cell)]
+    ours = pm_gravity._cic_deposit(*args, n)
+    permuted = pm_gravity._cic_deposit(args[0][perm], args[1][perm],
+                                       *args[2:], n)
+    assert ours.dtype == dtype
+    assert ours.numpy().tobytes() == permuted.numpy().tobytes()
+    flat, w = zip(*pm_gravity._cic_corners(pos, origin, cell, n))
+    exact = torch.zeros(n ** 3, dtype=torch.float64).index_add_(
+        0, torch.cat(flat), torch.cat([mass * wx for wx in w]))
+    torch.testing.assert_close(ours.double().reshape(-1), exact, rtol=2e-5,
+                               atol=1e-6 * float(exact.max()))
+
+
 @pytest.mark.parametrize("gradient", ["fd", "spectral"])
 def test_pm_long_range_matches_jax_xla(gradient):
     jp = _two_blobs()
