@@ -208,6 +208,23 @@ caught:
       the three runs (counts reset just before and read just after: 290
       density_var_h, 98 force_var_h, 98 grav_short, 98 pack_force, 26
       mesh solves, nothing else);
+23. the graded configurations 1-4 through the port's evidence tools (run
+   after phase 22, before the results of phase 18):
+   a. `summersph_tpu_torch.tools.evidence` in a temporary directory for
+      ring (N = 4,000), disc100 (12,000) and varh (20,000), 2 segments of
+      64 steps each: exit code 0, check_health after every segment, the
+      launches of each run (ring: density_fixed_h, force_fixed_h and
+      pack_force 129 each, nothing else; disc100: the same and 129
+      grav_short and 129 mesh solves; varh: 385 density_var_h, 129 each of
+      force_var_h, pack_force, grav_short and mesh solves), both ledger
+      rows' n_gas equal to the JAX ledger's first two and E_kin, E_int,
+      Lz within 1e-3 of it at matching t; the ms a step beside the card,
+      the SPH candidates tested per row, and the busy share and top
+      kernels of 5 more steps;
+   b. `summersph_tpu_torch.tools.sod_evidence.run_case` at n = 400 on
+      'grid' and on 'sorted': the L2 within 5e-4 of 0.01383, all 400
+      alive, only density_fixed_h, force_fixed_h and pack_force
+      launched, as often each; the busy share of 5 steps;
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
@@ -2821,6 +2838,114 @@ def config5_segments(n, dev, label, steps_per_seg=16):
     return launches
 
 
+# ------------------------------- phase 23: the graded configurations 1-4
+EVIDENCE_SEGMENTS = 2   # phase 23a: segments of 64 steps of each run
+EVIDENCE_ROW_TOL = 1e-3   # E_kin, E_int, Lz against the JAX ledger's rows
+SOD_L2, SOD_L2_BOUND = 0.01383, 5e-4   # docs/results/sod/README.md, n = 400
+
+
+def evidence_expect(name, steps):
+    """The launches of `tools.evidence` on `name`: one prime and `steps`
+    steps, a force launch and its pack each, the density once (fixed h)
+    or 1 + 2 h re-sums (variable h), with TreePM one short-range launch
+    and one mesh solve (pm_every 1)."""
+    one = 1 + steps
+    if name == "varh":
+        expect = {"density_var_h": 1 + 3 * steps, "force_var_h": one}
+    else:
+        expect = {"density_fixed_h": one, "force_fixed_h": one}
+    expect["pack_force"] = one
+    if name != "ring":
+        expect.update({"grav_short": one, "mesh solves": one})
+    return expect
+
+
+def evidence_phase(dev, card, seg=64):
+    """Phase 23a: `tools.evidence.run_config` for ring, disc100 and varh at
+    full N in a temporary directory, EVIDENCE_SEGMENTS segments of `seg`
+    steps each: exit code 0 (check_health passed after every segment),
+    the launches of each run (counts reset just before, read just after)
+    as `evidence_expect` says, both ledger rows' n_gas equal to the JAX
+    ledger's first two and E_kin, E_int, Lz within EVIDENCE_ROW_TOL of it
+    at matching t (`config5.compare`, the reference with the run's t0 row
+    in front, `evidence.jax_reference`); the ms a step beside the card;
+    then the busy share and top kernels of 5 more steps."""
+    import os
+    import tempfile
+    import numpy as np
+    from summersph_tpu_torch.tools import config5, evidence
+
+    steps = EVIDENCE_SEGMENTS * seg
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("ring", "disc100", "varh"):
+            label = f"{name} evidence"
+            out = os.path.join(tmp, name)
+            reset_counts()
+            state, cfg, code = evidence.run_config(
+                name, seg_steps=seg, device=dev, out_dir=out,
+                max_segments=EVIDENCE_SEGMENTS)
+            launches = launch_counts()
+            require(code == 0, f"{label}: exit code {code}")
+            expect = evidence_expect(name, steps)
+            require(nonzero(launches) == expect,
+                    f"{label}: launches {nonzero(launches)}, expected "
+                    f"{expect}")
+            led = config5.read_ledger(os.path.join(out, "ledger.csv"))
+            z = np.load(os.path.join(out, "panels.npz"))
+            ref = evidence.jax_reference(
+                name, dict(zip(config5.LEDGER_COLUMNS, z["row0"])))
+            require(len(led["t"]) == EVIDENCE_SEGMENTS
+                    and np.array_equal(led["n_gas"], ref["n_gas"][1:3]),
+                    f"{label}: n_gas {led['n_gas']} against the JAX "
+                    f"ledger's {ref['n_gas'][1:3]}")
+            span = (0.0, float(led["t"][-1]))
+            dev_rows = config5.compare(led, ref, [span],
+                                       ("E_kin", "E_int", "Lz"))[span]
+            require(dev_rows.pop("rows") == EVIDENCE_SEGMENTS
+                    and all(v <= EVIDENCE_ROW_TOL
+                            for v in dev_rows.values()),
+                    f"{label}: against the JAX ledger {dev_rows}")
+            ms = float(np.median(z["seg_wall"])) / seg * 1e3
+            print(f"[{label}] N={int(z['n0'])}, {EVIDENCE_SEGMENTS} segments"
+                  f" of {seg} steps to t={float(led['t'][-1]):.6f}: n_gas "
+                  f"{led['n_gas'].astype(int).tolist()} as the JAX "
+                  f"ledger's; largest relative deviation from it "
+                  f"{ {k: f'{v:.3e}' for k, v in dev_rows.items()} }; "
+                  f"check_health passed; launches {nonzero(launches)}; "
+                  f"{ms:.3f} ms a step (median segment) on {card}; SPH "
+                  f"candidates tested per row "
+                  f"{z['tested_per_row'].round(1).tolist()}", flush=True)
+            device_busy(state, cfg, 5, label)
+
+
+def sod_phase(dev, card, n=400):
+    """Phase 23b: `tools.sod_evidence.run_case` at n on 'grid' and on
+    'sorted': the L2 within SOD_L2_BOUND of SOD_L2 (run_case raises when
+    a particle is lost), the launches (density_fixed_h, force_fixed_h and
+    pack_force, equal counts, nothing else), the wall; then the busy
+    share and top kernels of 5 steps from the ICs."""
+    from summersph_tpu_torch.models.sod import sod_ic
+    from summersph_tpu_torch.tools import sod_evidence
+
+    for mode in ("grid", "sorted"):
+        label = f"Sod n={n} {mode}"
+        reset_counts()
+        err, wall = sod_evidence.run_case(n, mode, dev)
+        launches = nonzero(launch_counts())
+        k = launches.get("density_fixed_h", 0)
+        require(k > 0 and launches == {"density_fixed_h": k,
+                                       "force_fixed_h": k, "pack_force": k},
+                f"{label}: launches {launches}")
+        require(abs(err - SOD_L2) <= SOD_L2_BOUND,
+                f"{label}: L2 {err} against {SOD_L2}")
+        print(f"[{label}] L2 {err:.6f} (JAX package {SOD_L2}, bound "
+              f"{SOD_L2_BOUND}), all {n} alive, {wall:.3f} s to t = 0.1 "
+              f"({k} steps, {wall / k * 1e3:.3f} ms a step) on {card}; "
+              f"launches {launches}", flush=True)
+        cfg = sod_evidence.case_config(n, mode)
+        device_busy(sod_ic(n=n, cfg=cfg, device=dev)[0], cfg, 5, label)
+
+
 def main():
     import torch
 
@@ -3118,6 +3243,12 @@ def main():
             f"config 5 segments: launches {nonzero(c5_seg)}, expected "
             f"{expect}")
     phase_done("22b (N=1048576, config 5 segments)")
+
+    # -- phase 23: the graded configurations 1-4 through their tools
+    evidence_phase(dev, card)
+    phase_done("23a (ring, disc100, varh: tools.evidence)")
+    sod_phase(dev, card)
+    phase_done("23b (Sod: tools.sod_evidence)")
 
     # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],

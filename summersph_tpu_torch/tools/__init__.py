@@ -1,3 +1,4 @@
-from . import config5, density_image, make_ics
+from . import config5, density_image, evidence, make_ics, sod_evidence
 
-__all__ = ["config5", "density_image", "make_ics"]
+__all__ = ["config5", "density_image", "evidence", "make_ics",
+           "sod_evidence"]

@@ -27,7 +27,9 @@ The config's TPU window knobs and the script's resume overrides of them
 (`--grav-fetch`, `--grav-window`, `--overflow-items`, `--sph-fetch`) are
 kept and have no effect: the port's kernels walk every candidate.
 `--report` prints the summary of `<out>/ledger.csv` and, with
-`--reference`, the ledger held against another at matching t.
+`--reference`, the ledger held against another at matching t; where
+matplotlib is installed it also draws the script's six panels of the
+ledger into `<out>/collapse_evolution.png` (`evolution_figure`).
 """
 
 from __future__ import annotations
@@ -120,14 +122,15 @@ def _sync(state):
 
 def run_segments(state, cfg, out_dir, steps_per_seg=16, max_wall=5400.0,
                  ckpt_every=8, stop_t=0.0, stop_dt=0.0, t_end=T_END,
-                 max_segments=0):
+                 max_segments=0, on_segment=None):
     """The script's segment loop on a primed `state`: `run_steps` segments
     until t >= t_end, the wall budget, a stop condition (t >= stop_t;
     dt < stop_dt once t > 1) or, when given, `max_segments` segments, each
     followed by a flushed row of `<out_dir>/ledger.csv` (its header when
-    the file is new), `warn_stats`, the checkpoint every `ckpt_every`
-    segments and `check_health`.  Returns (state, exit code): 0, or 2 when
-    the state diverged; the checkpoint is written in both cases."""
+    the file is new), `warn_stats`, `on_segment(state, row, wall)` when
+    given, the checkpoint every `ckpt_every` segments and `check_health`.
+    Returns (state, exit code): 0, or 2 when the state diverged; the
+    checkpoint is written in both cases."""
     ledger = os.path.join(out_dir, "ledger.csv")
     ckpt = os.path.join(out_dir, "checkpoint.npz")
     new_ledger = not os.path.exists(ledger)
@@ -159,6 +162,8 @@ def run_segments(state, cfg, out_dir, steps_per_seg=16, max_wall=5400.0,
                   f"wall={wall:.3f}s ({steps_per_seg} steps, "
                   f"{wall / steps_per_seg * 1e3:.1f} ms/step)", flush=True)
             warn_stats(state)
+            if on_segment is not None:
+                on_segment(state, row, wall)
             seg += 1
             if seg % ckpt_every == 0:
                 save_npz(ckpt, state, cfg)
@@ -335,6 +340,54 @@ def wall_by_span(led: dict, spans, steps_per_seg=16) -> dict:
     return out
 
 
+def evolution_figure(led: dict, out_png):
+    """The script's six panels of a ledger (`read_ledger`), each with the
+    free-fall time dashed, into `out_png`.  Needs matplotlib (imported
+    here: the card's machine has none)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    t = led["t"]
+    panels = [
+        ("rho_max", "peak density [M$_\\odot$/AU$^3$]", "log",
+         [("rho_max", led["rho_max"], "#2f6fb4")]),
+        ("particles", "count", "linear",
+         [("gas", led["n_gas"], "#2f6fb4"),
+          ("sinks x 1e4", led["n_sinks"] * 1e4, "#c25d3a")]),
+        ("mass ledger", "M$_\\odot$", "linear",
+         [("gas", led["m_gas"], "#2f6fb4"),
+          ("sinks", led["m_sinks"], "#c25d3a"),
+          ("total", led["m_gas"] + led["m_sinks"], "#555555")]),
+        ("energies", "code units", "log",
+         [("E_kin", led["E_kin"], "#2f6fb4"),
+          ("E_int", led["E_int"], "#c25d3a")]),
+        ("timestep", "dt [yr]", "log", [("dt", led["dt"], "#2f6fb4")]),
+        ("angular momentum", "L$_z$", "linear",
+         [("Lz", led["Lz"], "#2f6fb4")]),
+    ]
+    fig, axes = plt.subplots(2, 3, figsize=(13, 7), sharex=True)
+    for ax, (name, ylab, yscale, series) in zip(axes.ravel(), panels):
+        for label, y, color in series:
+            ax.plot(t, y, color=color, lw=1.5)
+            ax.annotate(f" {label}", (t[-1], y[-1]), color=color,
+                        fontsize=8, va="center")
+        ax.set_title(name, fontsize=10)
+        ax.set_ylabel(ylab, fontsize=8)
+        ax.set_yscale(yscale)
+        ax.axvline(T_FF, color="#aaaaaa", lw=0.8, ls="--")
+        ax.grid(True, color="#eeeeee", lw=0.5)
+        ax.tick_params(labelsize=8)
+    for ax in axes[1]:
+        ax.set_xlabel("t [yr]  (dashed: t_ff)", fontsize=8)
+    fig.suptitle("Config 5: 1e6-particle rotating-cloud collapse to sink "
+                 "formation (TreePM + variable h, the PyTorch port)",
+                 fontsize=11)
+    fig.tight_layout()
+    fig.savefig(out_png, dpi=130)
+    plt.close(fig)
+
+
 def report(out_dir, reference=None) -> list:
     """The summary lines of `<out_dir>/ledger.csv` and its wall by span of
     t; with `reference` also, over our rows inside the reference's t
@@ -412,6 +465,16 @@ def main(argv=None) -> int:
     out_dir = os.environ.get("C5_OUT") or DEFAULT_OUT
     if args.report:
         print("\n".join(report(out_dir, args.reference)), flush=True)
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("collapse_evolution.png not drawn: no matplotlib here",
+                  flush=True)
+        else:
+            png = os.path.join(out_dir, "collapse_evolution.png")
+            evolution_figure(read_ledger(os.path.join(out_dir,
+                                                      "ledger.csv")), png)
+            print(f"wrote {png}", flush=True)
         return 0
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
