@@ -22,17 +22,18 @@ caught:
    bench.py's headline config -- prime, run_steps(20) to warm up,
    run_steps(20) timed -- with every launch counter reset just before,
    then checks (41 launches of each SPH kernel, all health counters zero,
-   check_health, particles lost only to accretion, finite diagnostics), a
-   per-layer breakdown of one step, and each kernel against its plain
-   version at these shapes;
+   check_health, particles lost only to accretion, finite diagnostics), the
+   span table of 5 steps (`span_table`: the program's spans reduced by
+   `summersph_tpu_torch/span_table.py`), and each kernel against its
+   plain version at these shapes;
 6. the fused TreePM path at full size: N = 1,048,576, bench.py's first pm
    sweep cell (grav_grid 256, grav_fuse_short, pm_every 8): 41 fused
    force launches, 7 mesh solves, no short-range kernel launch, the same
-   health checks, a layer breakdown of one solving step, the device busy
-   share, and the fused kernel against its plain version;
+   health checks, the span table of 5 steps with the busy share, and the
+   fused kernel against its plain version;
 7. the separate TreePM path at full size: grav_grid 128, pm_every 1: 41
-   launches of the short-range kernel and 41 solves, the same checks, a
-   layer breakdown, and the kernel against its plain version;
+   launches of the short-range kernel and 41 solves, the same checks, the
+   span table, and the kernel against its plain version;
 8. the variable-h kernels at N = 131,072 on config 5's collapse sphere
    (scripts/config5_run.py build(), h0 = 2.0) after one standalone
    h-iteration: density_var_h (rho_raw and Omega_raw) and force_var_h
@@ -58,8 +59,8 @@ caught:
    grav_short launches and 11 mesh solves, no fixed-h kernel; the window,
    non-finite and sink-slot counters 0 (sph_clamped and h_unconverged are
    printed: the JAX package counts them too); check_health, mass
-   conservation, particle-steps/s, peak memory, a layer breakdown, the busy
-   share, and both variable-h kernels against their plain versions at these
+   conservation, particle-steps/s, peak memory, the span table with the
+   busy share, and both variable-h kernels against their plain versions at these
    shapes;
 12. the seven gated kernels (block timesteps) at N = 131,072, on the
    states of phases 3, 4 and 8 with the rows of the lowest quarter in x
@@ -73,9 +74,10 @@ caught:
    min(8 x the tightest candidate, dt_max): the rung occupancy (at least
    two rungs populated), the active share of rows and groups per substep,
    8 launches of density_fixed_h_gated and of force_fixed_h_gated per base
-   step and none of any ungated kernel, the health checks, the layer spans
-   of every substep of one base step, the host waits the profiler counts
-   in a base step beside a global step's, the busy share, and the A/B:
+   step and none of any ungated kernel, the health checks, the host waits
+   the profiler counts in a base step beside a global step's, the span
+   table of one base step (its `substep` spans) with the busy share, and
+   the A/B:
    the global engine (dt_bins = 1) and the binned engine from the same
    primed state over the same simulated time, wall seconds per unit of
    simulated time and mass, momentum, e_kin and rho_max of both legs
@@ -88,7 +90,7 @@ caught:
 15. config 5 with block timesteps at N = 1,048,576, dt_bins = 3 (separate
    TreePM, pm_every 4): 3 density_var_h_gated, 1 force_var_h_gated and 1
    grav_short_gated launch per substep, one mesh solve per run_steps call,
-   the collapse checks, the layer spans, the busy share and the A/B;
+   the collapse checks, the span table with the busy share and the A/B;
 16. window shapes built to break a queue or a tile loop
    (summersph_tpu_torch/models/ragged.py: empty ranges, ranges of 1, 31,
    32, 33 and 129 candidates, groups of more than one chunk of
@@ -219,12 +221,12 @@ caught:
       force_var_h, pack_force, grav_short and mesh solves), both ledger
       rows' n_gas equal to the JAX ledger's first two and E_kin, E_int,
       Lz within 1e-3 of it at matching t; the ms a step beside the card,
-      the SPH candidates tested per row, and the busy share and top
-      kernels of 5 more steps;
+      the SPH candidates tested per row, and the span table of 5 more
+      steps;
    b. `summersph_tpu_torch.tools.sod_evidence.run_case` at n = 400 on
       'grid' and on 'sorted': the L2 within 5e-4 of 0.01383, all 400
       alive, only density_fixed_h, force_fixed_h and pack_force
-      launched, as often each; the busy share of 5 steps;
+      launched, as often each; the span table of 5 steps;
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
@@ -890,154 +892,25 @@ def check_collapse(state, warm, out, label):
           f"{total1:.7g}", flush=True)
 
 
-def layer_breakdown(state, cfg):
-    """CUDA-event milliseconds of each layer of one step (the body of
-    integrate.step with reuse_forces, solving the mesh when gravity is
-    on; with variable h also the h-iteration and sink creation and
-    merging), on `state`."""
-    import torch
-    from summersph_tpu_torch.integrate import (_count_nonfinite,
-                                               _coverage_stats, drift, kick)
-    from summersph_tpu_torch.ops import cuda_pairs, pairs, pm_gravity
-    from summersph_tpu_torch.ops.eos import eos_update
-    from summersph_tpu_torch.ops.gravity import sink_gravity
-    from summersph_tpu_torch.ops.sinks import (accrete, create_sinks,
-                                               cull_bounds, merge_sinks)
-    from summersph_tpu_torch.ops.smoothing import update_smoothing
-    from summersph_tpu_torch.ops.sorted_grid import sort_particles
-    from summersph_tpu_torch.ops.timestep import next_timestep
-
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    grav = cfg.gravity in pm_gravity.PM_MODES
-    fuse = grav and cfg.grav_fuse_short
-    var = cfg.fixed_h is None
-    p, s, dt = state.particles, state.sinks, state.dt
-    mark("start")
-    p, s = drift(*kick(p, s, dt), dt)
-    mark("rest")
-    p, grid = sort_particles(p, cfg, h_pad=cfg.sort_h_pad if var else 1.0)
-    mark("sort")
-    split = None
-    if grav:
-        origin, cell, r_s = pm_gravity.pm_geometry(p, cfg)
-        split = (r_s, cfg.effective_rcut_rs() * r_s)
-        mark("rest")
-    rho_raw, omega_raw = cuda_pairs.density_sums(p, cfg, grid)
-    mark("density kernel")
-    rho, omega = pairs.finalize_density(rho_raw, omega_raw, p.h, p.alive,
-                                        p.mass)
-    if not var:
-        omega = torch.ones_like(omega)
-    p = eos_update(p.replace(rho=rho, omega=omega), cfg)
-    mark("finalize+EOS")
-    out = cuda_pairs.force_sums(p, cfg, grid, split if fuse else None)
-    mark("fused force kernel" if fuse else "force kernel")
-    ax, ay, az, du, araw = out[:5]
-    acc = torch.where(p.alive[:, None], torch.stack([ax, ay, az], -1), 0.0)
-    dalpha = torch.where(p.alive, pairs.alpha_rate(araw, rho, p.alpha, p.cs,
-                                                   p.h, cfg), 0.0)
-    mark("rest")
-    if grav:
-        n = cfg.grav_grid
-        m = torch.where(p.alive, p.mass, 0.0)
-        rho_pad = torch.zeros((2 * n,) * 3, dtype=p.pos.dtype,
-                              device=p.pos.device)
-        rho_pad[:n, :n, :n] = pm_gravity._cic_deposit(p.pos, m, origin,
-                                                      cell, n) / cell ** 3
-        mark("CIC deposit")
-        phi_k = (torch.fft.rfftn(rho_pad)
-                 * pm_gravity.grav_tables(cfg, p.pos.dtype, p.pos.device)
-                 * (cell * cell))
-        grads = pm_gravity._fd4_gradient(
-            torch.fft.irfftn(phi_k, s=(2 * n,) * 3), cell)
-        force = torch.stack([g[:n, :n, :n] for g in grads], dim=-1)
-        mark("FFT + gradient")
-        acc_long = pm_gravity._cic_gather(force, p.pos, origin, cell, n)
-        mark("CIC gather")
-        if fuse:
-            acc = acc + acc_long + torch.stack(out[5], -1)
-        else:
-            pos_s, m_s, h_s, ggrid, perm, gsplit = pm_gravity.gravity_sort(
-                p, cfg, r_s)
-            mark("gravity sort")
-            g = cuda_pairs.grav_short_sums(pos_s, m_s, h_s, ggrid, cfg,
-                                           gsplit)
-            mark("short-range kernel")
-            acc_s = torch.empty_like(p.pos)
-            acc_s[perm[:p.capacity]] = torch.stack(g, -1)[:p.capacity]
-            acc = acc + acc_long + acc_s
-        mark("rest")
-    acc_gas_sink, acc_sink = sink_gravity(p, s)
-    mark("sink gravity")
-    p = p.replace(acc=acc + acc_gas_sink, du=torch.where(p.alive, du, 0.0),
-                  dalpha=dalpha)
-    p, s = kick(p, s.replace(acc=acc_sink), dt)
-    next_timestep(p, dt, cfg)
-    zero = torch.zeros((), dtype=torch.int32, device=p.pos.device)
-    n_open = full = zero
-    if var:
-        mark("rest")
-        p, n_open = update_smoothing(p, cfg, grid=grid)
-        mark("h-iteration (re-sums + Newton)")
-        s, full = create_sinks(p, s, cfg)
-        p, s = accrete(p, s)
-        if cfg.sink_merge_factor > 0.0:
-            s, _ = merge_sinks(s, cfg)
-        mark("create/accrete/merge")
-        p, s = cull_bounds(p, s, cfg)
-    else:
-        p, s = cull_bounds(*accrete(p, s), cfg)
-    _coverage_stats(cfg, grid, zero, n_open, _count_nonfinite(p), full)
-    mark("rest")
-    torch.cuda.synchronize()
-    layers = {}
-    for i in range(1, len(marks)):
-        name = marks[i][0]
-        layers[name] = (layers.get(name, 0.0)
-                        + marks[i - 1][1].elapsed_time(marks[i][1]))
-    return layers
-
-
-def print_layers(layers, label):
-    total = sum(layers.values())
-    print(f"[{label}] one step by layer (CUDA events, ms): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in layers.items()) + f"; sum {total:.3f}",
-        flush=True)
-
-
-def device_busy(state, cfg, steps, label):
-    """Device kernel time over wall time for `steps` steps under
-    torch.profiler, and the five kernels that take most of it."""
+def span_table(state, cfg, steps, label):
+    """The program's spans of `steps` steps of run_steps on `state` under
+    torch.profiler (the card's activity), reduced by
+    `summersph_tpu_torch.span_table`: per span name the host and device
+    ms, launches and idle ms, the counters, and the busy share of the
+    window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from summersph_tpu_torch import span_table, tracing
     from summersph_tpu_torch.integrate import run_steps
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    tracing.collect()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_steps(state, cfg, steps)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kern)
-    if dev_us <= 0:
-        print(f"[{label}] device busy share: not measured (the profiler "
-              f"saw no device time)", flush=True)
-        return
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"[{label}] profiler, {steps} steps: device {dev_us / 1e3:.3f} ms "
-          f"of {wall * 1e3:.3f} ms wall, busy share {dev_us / 1e6 / wall:.3f}"
-          f"; top kernels (ms per step): " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f}"
-              for e in top), flush=True)
+    table = span_table.table(prof, tracing.collect())
+    for line in table.lines():
+        print(f"[{label}] {steps} steps: {line}", flush=True)
 
 
 def require_packs(launches, label):
@@ -1055,7 +928,7 @@ def require_packs(launches, label):
 def run_path(state, cfg, expect, label, check):
     """One main path: reset the counts, prime + warm-up + timed steps, read
     the counts and check them against `expect`; then `check` (health),
-    the peak memory, a layer breakdown, the busy share.  Returns
+    the peak memory, the span table of 5 steps.  Returns
     (launches, final state, cfg)."""
     import torch
 
@@ -1075,8 +948,7 @@ def run_path(state, cfg, expect, label, check):
                 f"{label}: {name} counted {launches[name]}, expected {count}")
     require_packs(launches, label)
     check(state, warm, out, label)
-    print_layers(layer_breakdown(out, cfg), label)
-    device_busy(out, cfg, 5, label)
+    span_table(out, cfg, 5, label)
     return launches, out, cfg
 
 
@@ -1448,8 +1320,8 @@ def binned_path(state, cfg, bins, steps, per_substep, label, check,
     steps), read the counts.  `per_substep` gives the gated launches each
     substep must make; every kernel it does not name, gated or not, must
     count 0, and the mesh is solved once per run_steps call when gravity is
-    on (pm_every >= the base steps of a call).  Then `check`, the layer
-    spans of one base step, the host waits and the busy share.  Returns
+    on (pm_every >= the base steps of a call).  Then `check`, the host
+    waits and the span table of one base step.  Returns
     (launches, primed state, final state, binned cfg, the primed state's
     tightest candidate)."""
     import torch
@@ -1489,141 +1361,9 @@ def binned_path(state, cfg, bins, steps, per_substep, label, check,
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
           flush=True)
     check(s0, warm, out, label)
-    print_binned_layers(binned_layer_breakdown(out, cfg_b), label)
     host_waits(out, cfg_b, cfg, label)
-    device_busy(out, cfg_b, 1, label)
+    span_table(out, cfg_b, 1, label)
     return launches, s0, out, cfg_b, tight
-
-
-def binned_layer_breakdown(state, cfg):
-    """CUDA-event milliseconds of each layer of every substep of one base
-    step (the body of blockstep._step_binned, solving the mesh at the
-    first substep when gravity is on), on `state`.  Returns a list, one
-    {layer: ms} per substep."""
-    import torch
-    from summersph_tpu_torch.blockstep import (_drift, _kick_masked,
-                                               assign_rungs, closing_mask,
-                                               opening_mask, rung_dt)
-    from summersph_tpu_torch.integrate import (_count_nonfinite,
-                                               _coverage_stats)
-    from summersph_tpu_torch.ops import cuda_pairs, pairs, pm_gravity
-    from summersph_tpu_torch.ops.eos import eos_update
-    from summersph_tpu_torch.ops.gravity import sink_gravity
-    from summersph_tpu_torch.ops.sinks import (accrete, create_sinks,
-                                               cull_bounds, merge_sinks)
-    from summersph_tpu_torch.ops.smoothing import update_smoothing
-    from summersph_tpu_torch.ops.sorted_grid import (group_worklist,
-                                                     sort_particles)
-
-    grav = cfg.gravity in pm_gravity.PM_MODES
-    fuse = grav and cfg.grav_fuse_short
-    var = cfg.fixed_h is None
-    p, s, dt_base = state.particles, state.sinks, state.dt
-    dtype, cap0 = p.pos.dtype, p.capacity
-    n_sub = 1 << (cfg.dt_bins - 1)
-    delta = dt_base / n_sub
-    rung = assign_rungs(p, cfg, dt_base)
-    r_s_held = torch.zeros((), dtype=dtype, device=p.pos.device)
-    zero = torch.zeros((), dtype=torch.int32, device=p.pos.device)
-    per_substep = []
-    for j in range(n_sub):
-        marks = []
-
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
-
-        mark("start")
-        p, s = _kick_masked(p, s, rung_dt(rung, dt_base, dtype),
-                            opening_mask(rung, j, n_sub), delta)
-        p, s = _drift(p, s, delta)
-        mark("rest")
-        p2, grid, rung = sort_particles(
-            p, cfg, h_pad=cfg.sort_h_pad if var else 1.0,
-            carry_derived=True, extra=rung)
-        mark("sort (carrying)")
-        act = p2.alive & closing_mask(rung, j, n_sub)
-        gate = group_worklist(act, cfg.window_group)
-        mark("worklist")
-        split = None
-        phase = 0 if j == 0 else 1
-        if fuse:
-            r_s = (pm_gravity.pm_geometry(p2, cfg)[2] if j == 0
-                   else r_s_held)
-            split = (r_s, cfg.effective_rcut_rs() * r_s)
-            mark("rest")
-        p2d = cuda_pairs.density(p2, cfg, grid, gate, act)
-        mark("gated density")
-        p2d = eos_update(p2d, cfg)
-        mark("EOS")
-        out = cuda_pairs.force_sums(p2d, cfg, grid, split, gate)
-        mark("gated fused force" if fuse else "gated force")
-        ax, ay, az, du, araw = out[:5]
-        live = p2d.alive & act
-        acc = torch.where(live[:, None], torch.stack([ax, ay, az], -1), 0.0)
-        du = torch.where(live, du, 0.0)
-        dalpha = torch.where(live, pairs.alpha_rate(
-            araw, p2d.rho, p2d.alpha, p2d.cs, p2d.h, cfg), 0.0)
-        mark("rest")
-        if grav:
-            acc_long, r_s_held = pm_gravity.pm_long_range_held(
-                p2d, cfg, phase, r_s_held, True)
-            p2d = p2d.replace(acc_ext=acc_long)
-            mark("far field (solved at j = 0, then held)")
-            if fuse:
-                acc = acc + acc_long + torch.where(
-                    live[:, None], torch.stack(out[5], -1), 0.0)
-            else:
-                acc_short, _ = pm_gravity.pm_short_range(
-                    p2d, cfg, r_s_held, active_rows=act)
-                mark("gravity sort + gated short range")
-                acc = acc + acc_long + acc_short
-        acc_gas_sink, acc_sink = sink_gravity(p2d, s)
-        mark("sink gravity")
-        s = s.replace(acc=acc_sink)
-        p2 = p2d.replace(
-            acc=torch.where(act[:, None], acc + acc_gas_sink, p2.acc),
-            du=torch.where(act, du, p2.du),
-            dalpha=torch.where(act, dalpha, p2.dalpha))
-        p2, s = _kick_masked(p2, s, rung_dt(rung, dt_base, dtype), act,
-                             delta)
-        mark("rest")
-        n_open = full = zero
-        if var:
-            p_h, n_open = update_smoothing(p2, cfg, grid=grid, active=gate,
-                                           act_mask=act)
-            p2 = p2.replace(h=torch.where(act, p_h.h, p2.h))
-            mark("gated h-iteration")
-            s, full = create_sinks(p2, s, cfg)
-        p2, s = accrete(p2, s)
-        if cfg.sink_merge_factor > 0.0:
-            s, _ = merge_sinks(s, cfg)
-        mark("create/accrete/merge" if var else "accrete")
-        p2, s = cull_bounds(p2, s, cfg)
-        _coverage_stats(cfg, grid, zero, n_open, _count_nonfinite(p2), full)
-        if p2.capacity != cap0:
-            p2 = p2.map(lambda a: a[:cap0])
-            rung = rung[:cap0]
-        p = p2
-        mark("rest")
-        torch.cuda.synchronize()
-        layers = {}
-        for i in range(1, len(marks)):
-            name = marks[i][0]
-            layers[name] = (layers.get(name, 0.0)
-                            + marks[i - 1][1].elapsed_time(marks[i][1]))
-        per_substep.append(layers)
-    return per_substep
-
-
-def print_binned_layers(per_substep, label):
-    for j, layers in enumerate(per_substep):
-        print(f"[{label}] substep {j} by layer (CUDA events, ms): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in layers.items())
-              + f"; sum {sum(layers.values()):.3f}", flush=True)
-    print(f"[{label}] base step, sum of spans: "
-          f"{sum(sum(d.values()) for d in per_substep):.3f} ms", flush=True)
 
 
 def host_waits(state, cfg_b, cfg_g, label):
@@ -2869,7 +2609,7 @@ def evidence_phase(dev, card, seg=64):
     ledger's first two and E_kin, E_int, Lz within EVIDENCE_ROW_TOL of it
     at matching t (`config5.compare`, the reference with the run's t0 row
     in front, `evidence.jax_reference`); the ms a step beside the card;
-    then the busy share and top kernels of 5 more steps."""
+    then the span table of 5 more steps."""
     import os
     import tempfile
     import numpy as np
@@ -2915,15 +2655,15 @@ def evidence_phase(dev, card, seg=64):
                   f"{ms:.3f} ms a step (median segment) on {card}; SPH "
                   f"candidates tested per row "
                   f"{z['tested_per_row'].round(1).tolist()}", flush=True)
-            device_busy(state, cfg, 5, label)
+            span_table(state, cfg, 5, label)
 
 
 def sod_phase(dev, card, n=400):
     """Phase 23b: `tools.sod_evidence.run_case` at n on 'grid' and on
     'sorted': the L2 within SOD_L2_BOUND of SOD_L2 (run_case raises when
     a particle is lost), the launches (density_fixed_h, force_fixed_h and
-    pack_force, equal counts, nothing else), the wall; then the busy
-    share and top kernels of 5 steps from the ICs."""
+    pack_force, equal counts, nothing else), the wall; then the span
+    table of 5 steps from the ICs."""
     from summersph_tpu_torch.models.sod import sod_ic
     from summersph_tpu_torch.tools import sod_evidence
 
@@ -2943,7 +2683,7 @@ def sod_phase(dev, card, n=400):
               f"({k} steps, {wall / k * 1e3:.3f} ms a step) on {card}; "
               f"launches {launches}", flush=True)
         cfg = sod_evidence.case_config(n, mode)
-        device_busy(sod_ic(n=n, cfg=cfg, device=dev)[0], cfg, 5, label)
+        span_table(sod_ic(n=n, cfg=cfg, device=dev)[0], cfg, 5, label)
 
 
 def main():
@@ -3028,7 +2768,7 @@ def main():
                 f"{1 + 2 * STEPS}")
     require_packs(none_launches, label)
     check_run(state, warm, out, label)
-    print_layers(layer_breakdown(out, cfg), label)
+    span_table(out, cfg, 5, label)
     p2, grid = sort_particles(out.particles, cfg)
     ext = (grid.ends - grid.starts).sum(dim=1)
     print(f"[{label}] candidates per row: mean {float(ext.float().mean()):.1f}"

@@ -48,6 +48,7 @@ from .ops.smoothing import update_smoothing
 from .ops.sorted_grid import group_worklist, sort_h_pad, sort_particles
 from .ops.timestep import dt_candidates, next_timestep
 from .state import Particles, SimState, Sinks
+from .tracing import span, traced
 
 
 def assign_rungs(p: Particles, cfg: SimConfig, dt_base) -> torch.Tensor:
@@ -82,6 +83,7 @@ def rung_dt(rung: torch.Tensor, dt_base, dtype) -> torch.Tensor:
             * torch.exp2(-rung.to(dtype)))
 
 
+@traced("kick")
 def _kick_masked(p: Particles, s: Sinks, dt_p, mask, dt_sink):
     """Half-kick the masked rows by their own dt / 2 (`integrate.kick` with
     a per-particle dt and an activity mask); the sinks by dt_sink / 2,
@@ -105,6 +107,7 @@ def _kick_masked(p: Particles, s: Sinks, dt_p, mask, dt_sink):
     return p, s
 
 
+@traced("drift")
 def _drift(p: Particles, s: Sinks, delta):
     p = p.replace(pos=torch.where(p.alive[:, None], p.pos + delta * p.vel,
                                   p.pos))
@@ -148,6 +151,7 @@ def step_binned(state: SimState, cfg: SimConfig,
     return _step_binned(state, cfg, pm_phase, held_valid=False)
 
 
+@traced("step")
 def _step_binned(state: SimState, cfg: SimConfig, pm_phase: Optional[int],
                  held_valid: bool) -> SimState:
     _check_binned_cfg(cfg)
@@ -155,105 +159,110 @@ def _step_binned(state: SimState, cfg: SimConfig, pm_phase: Optional[int],
     dtype, dev = p.pos.dtype, p.pos.device
     cap0 = p.capacity
     n_sub = 1 << (cfg.dt_bins - 1)
-    delta = dt_base / n_sub
-
-    rung = assign_rungs(p, cfg, dt_base)
     pm_on = cfg.gravity in PM_MODES
     fuse = cfg.grav_fuse_short and pm_on
     h_pad = sort_h_pad(cfg)
-    r_s_held = (state.pm_r_s if state.pm_r_s is not None
-                else torch.zeros((), dtype=dtype, device=dev))
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    stats_max = torch.zeros_like(state.stats)
+    with span("timestep"):
+        delta = dt_base / n_sub
+        rung = assign_rungs(p, cfg, dt_base)
+        r_s_held = (state.pm_r_s if state.pm_r_s is not None
+                    else torch.zeros((), dtype=dtype, device=dev))
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        stats_max = torch.zeros_like(state.stats)
 
     for j in range(n_sub):
-        dt_p = rung_dt(rung, dt_base, dtype)
-        # opening kick: rungs whose step starts at j, with carried rates
-        p, s = _kick_masked(p, s, dt_p, opening_mask(rung, j, n_sub), delta)
-        p, s = _drift(p, s, delta)
+        with span("substep"):
+            dt_p = rung_dt(rung, dt_base, dtype)
+            # opening kick: rungs whose step starts at j, with carried rates
+            p, s = _kick_masked(p, s, dt_p, opening_mask(rung, j, n_sub),
+                                delta)
+            p, s = _drift(p, s, delta)
 
-        # sort at the drifted positions; stale fields and the rung ride
-        p2, grid, rung = sort_particles(p, cfg, h_pad=h_pad,
-                                        carry_derived=True, extra=rung)
-        act = p2.alive & closing_mask(rung, j, n_sub)
-        gate = group_worklist(act, cfg.window_group)
+            # sort at the drifted positions; stale fields and the rung ride
+            p2, grid, rung = sort_particles(p, cfg, h_pad=h_pad,
+                                            carry_derived=True, extra=rung)
+            act = p2.alive & closing_mask(rung, j, n_sub)
+            gate = group_worklist(act, cfg.window_group)
 
-        # far field: solved at most at the base step's first substep, held
-        # after it (the first substep leaves a valid held force behind)
-        phase = (pm_phase or 0) if j == 0 else 1
-        valid = held_valid if j == 0 else True
-        grav_split = None
-        if fuse:
-            # decide here, once: the fused kernel needs the split before
-            # the solve, and `pm_long_range_held` below must agree without
-            # reading the held split again
-            if recompute_far_field(phase, r_s_held, valid):
-                r_s_use = pm_geometry(p2, cfg)[2]
-                phase = 0
-            else:
-                r_s_use = r_s_held.to(dtype)
-                valid = True
-            grav_split = (r_s_use, cfg.effective_rcut_rs() * r_s_use)
-
-        out = pair_eval(p2, cfg, grid, grav_split, active=gate,
-                        act_mask=act)
-        p2d, acc_new, du, dalpha = out[:4]
-
-        grav_over = zero
-        if pm_on:
-            acc_long, r_s_held = pm_long_range_held(p2d, cfg, phase,
-                                                    r_s_held, valid)
-            p2d = p2d.replace(acc_ext=acc_long)
+            # far field: solved at most at the base step's first substep, held
+            # after it (the first substep leaves a valid held force behind)
+            phase = (pm_phase or 0) if j == 0 else 1
+            valid = held_valid if j == 0 else True
+            grav_split = None
             if fuse:
-                acc_new = acc_new + acc_long + out[4]
-                grav_over = torch.where(grav_split[1] <= grid.cell_size, 0,
-                                        torch.sum(act)).to(torch.int32)
-            else:
-                acc_short, grav_over = pm_short_range(p2d, cfg, r_s_held,
-                                                      active_rows=act)
-                acc_new = acc_new + acc_long + acc_short
+                # decide here, once: the fused kernel needs the split before
+                # the solve, and `pm_long_range_held` below must agree without
+                # reading the held split again
+                if recompute_far_field(phase, r_s_held, valid):
+                    r_s_use = pm_geometry(p2, cfg)[2]
+                    phase = 0
+                else:
+                    r_s_use = r_s_held.to(dtype)
+                    valid = True
+                grav_split = (r_s_use, cfg.effective_rcut_rs() * r_s_use)
 
-        acc_gas_sink, acc_sink = sink_gravity(p2d, s)
-        acc_new = acc_new + acc_gas_sink
-        s = s.replace(acc=acc_sink)
+            out = pair_eval(p2, cfg, grid, grav_split, active=gate,
+                            act_mask=act)
+            p2d, acc_new, du, dalpha = out[:4]
 
-        # merge: active rows take the fresh rates, inactive keep theirs
-        p2 = p2d.replace(acc=torch.where(act[:, None], acc_new, p2.acc),
-                         du=torch.where(act, du, p2.du),
-                         dalpha=torch.where(act, dalpha, p2.dalpha))
+            grav_over = zero
+            if pm_on:
+                acc_long, r_s_held = pm_long_range_held(p2d, cfg, phase,
+                                                        r_s_held, valid)
+                p2d = p2d.replace(acc_ext=acc_long)
+                if fuse:
+                    acc_new = acc_new + acc_long + out[4]
+                    grav_over = torch.where(grav_split[1] <= grid.cell_size, 0,
+                                            torch.sum(act)).to(torch.int32)
+                else:
+                    acc_short, grav_over = pm_short_range(p2d, cfg, r_s_held,
+                                                          active_rows=act)
+                    acc_new = acc_new + acc_long + acc_short
 
-        # closing kick at the rung boundary, with the fresh rates
-        # (the rung was re-sorted, so each row's dt is formed anew)
-        p2, s = _kick_masked(p2, s, rung_dt(rung, dt_base, dtype), act,
-                             delta)
+            acc_gas_sink, acc_sink = sink_gravity(p2d, s)
+            acc_new = acc_new + acc_gas_sink
+            s = s.replace(acc=acc_sink)
 
-        # per-substep epilogue, at the global engine's per-step cadence:
-        # the h-iteration of the closing rows and the sink lifecycle
-        n_unconverged = sink_full = zero
-        if cfg.fixed_h is None:
-            p_h, n_unconverged = update_smoothing(p2, cfg, grid=grid,
-                                                  active=gate, act_mask=act)
-            # only h moves; rho/P/cs/omega keep the stale-consistent merge
-            p2 = p2.replace(h=torch.where(act, p_h.h, p2.h))
-            s, sink_full = create_sinks(p2, s, cfg)
+            # merge: active rows take the fresh rates, inactive keep theirs
+            p2 = p2d.replace(acc=torch.where(act[:, None], acc_new, p2.acc),
+                             du=torch.where(act, du, p2.du),
+                             dalpha=torch.where(act, dalpha, p2.dalpha))
 
-        p2, s = accrete(p2, s)
-        if cfg.sink_merge_factor > 0.0:
-            s, _ = merge_sinks(s, cfg)
-        p2, s = cull_bounds(p2, s, cfg)
+            # closing kick at the rung boundary, with the fresh rates
+            # (the rung was re-sorted, so each row's dt is formed anew)
+            p2, s = _kick_masked(p2, s, rung_dt(rung, dt_base, dtype), act,
+                                 delta)
 
-        stats_max = torch.maximum(stats_max, _coverage_stats(
-            cfg, grid, grav_over, n_unconverged, _count_nonfinite(p2),
-            sink_full))
+            # per-substep epilogue, at the global engine's per-step cadence:
+            # the h-iteration of the closing rows and the sink lifecycle
+            n_unconverged = sink_full = zero
+            if cfg.fixed_h is None:
+                p_h, n_unconverged = update_smoothing(
+                    p2, cfg, grid=grid, active=gate, act_mask=act)
+                # only h moves; rho/P/cs/omega keep the stale-consistent merge
+                p2 = p2.replace(h=torch.where(act, p_h.h, p2.h))
+                s, sink_full = create_sinks(p2, s, cfg)
 
-        if p2.capacity != cap0:  # drop the sort's dead pad slots
-            p2 = p2.map(lambda a: a[:cap0])
-            rung = rung[:cap0]
-        p = p2
+            p2, s = accrete(p2, s)
+            if cfg.sink_merge_factor > 0.0:
+                s, _ = merge_sinks(s, cfg)
+            p2, s = cull_bounds(p2, s, cfg)
 
-    dt_next = next_timestep(p, dt_base, cfg, cand_scale=float(n_sub))
-    out = state.replace(particles=p, sinks=s, t=state.t + dt_base,
-                        dt=dt_next, stats=stats_max)
+            with span("stats"):
+                stats_max = torch.maximum(stats_max, _coverage_stats(
+                    cfg, grid, grav_over, n_unconverged,
+                    _count_nonfinite(p2), sink_full))
+
+            if p2.capacity != cap0:  # drop the sort's dead pad slots
+                p2 = p2.map(lambda a: a[:cap0])
+                rung = rung[:cap0]
+            p = p2
+
+    with span("timestep"):
+        dt_next = next_timestep(p, dt_base, cfg, cand_scale=float(n_sub))
+        t = state.t + dt_base
+    out = state.replace(particles=p, sinks=s, t=t, dt=dt_next,
+                        stats=stats_max)
     if state.pm_r_s is not None:
         out = out.replace(pm_r_s=r_s_held if pm_on else state.pm_r_s)
     return out

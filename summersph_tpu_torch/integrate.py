@@ -92,6 +92,7 @@ from .parallel.comm import (Mesh, all_gather_fields, axis_index,
 from .parallel.decomp import (DecompAux, attach_density, build_cols,
                               exchange_rim, global_geometry, redistribute)
 from .state import Particles, SimState, Sinks
+from .tracing import span, traced
 
 
 def check_supported(cfg: SimConfig, axis_name: Optional[Mesh] = None):
@@ -105,6 +106,7 @@ def check_supported(cfg: SimConfig, axis_name: Optional[Mesh] = None):
                         f"not {axis_name!r}")
 
 
+@traced("force_eval")
 def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
                axis_name: Optional[Mesh] = None, pm=None):
     """Sort -> density -> EOS -> SPH forces -> self-gravity -> sink gravity.
@@ -333,6 +335,7 @@ def _force_eval_sorted_decomp(p: Particles, s: Sinks, cfg: SimConfig,
     return p2, s.replace(acc=acc_sink), (aux, grav_over, None)
 
 
+@traced("kick")
 def kick(p: Particles, s: Sinks, dt):
     """Half-kick: v += a dt/2, u += du dt/2, alpha += dalpha dt/2, with
     the Kahan-compensated u update when the carry `u_c` is present."""
@@ -355,6 +358,7 @@ def kick(p: Particles, s: Sinks, dt):
     return p, s
 
 
+@traced("drift")
 def drift(p: Particles, s: Sinks, dt):
     """Full drift: x += v dt."""
     p = p.replace(pos=torch.where(p.alive[:, None], p.pos + dt * p.vel,
@@ -368,18 +372,19 @@ def _coverage_stats(cfg: SimConfig, grid, grav_over, n_unconverged,
                     nonfinite, sink_full, decomp_pressure=None):
     """int32[len(STATS_FIELDS)] health counters for this step.  The window
     slots are 0 on the dense engine (no grid); the decomposition slot is
-    0 outside the slab decomposition."""
+    0 outside the slab decomposition; a counter given as None is 0."""
     zero = torch.zeros((), dtype=torch.int32, device=grav_over.device)
     if grid is None:
         sph_over = clamped = zero
     else:
         sph_over, clamped = window_overflow(grid, cfg), grid.n_clamped
-    return torch.stack([sph_over, clamped,
-                        grav_over.to(torch.int32),
-                        n_unconverged.to(torch.int32),
-                        nonfinite.to(torch.int32), sink_full.to(torch.int32),
-                        zero if decomp_pressure is None
-                        else decomp_pressure.to(torch.int32)])
+
+    def slot(c):
+        return zero if c is None else c.to(torch.int32)
+
+    return torch.stack([sph_over, clamped, slot(grav_over),
+                        slot(n_unconverged), slot(nonfinite),
+                        slot(sink_full), slot(decomp_pressure)])
 
 
 def _count_nonfinite(p: Particles) -> torch.Tensor:
@@ -400,6 +405,7 @@ def step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh] = None,
     return _step(state, cfg, axis_name, pm_phase, held_valid=False)
 
 
+@traced("step")
 def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
           pm_phase: Optional[int], held_valid: bool) -> SimState:
     check_supported(cfg, axis_name)
@@ -424,16 +430,16 @@ def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
                                                      pm=pm)
         p, s = kick(p, s, dt)
 
-    t = state.t + dt
-    dt = next_timestep(p, dt, cfg, axis_name)
+    with span("timestep"):
+        t = state.t + dt
+        dt = next_timestep(p, dt, cfg, axis_name)
 
     # the slab decomposition hands its local columns and grid on
     aux = grid if isinstance(grid, DecompAux) else None
     if aux is not None:
         grid = aux.grid
 
-    n_unconverged = torch.zeros((), dtype=torch.int32, device=p.pos.device)
-    sink_full = torch.zeros((), dtype=torch.int32, device=p.pos.device)
+    n_unconverged = sink_full = None
     if cfg.fixed_h is None:
         if aux is not None:
             p, n_unconverged = update_smoothing(
@@ -452,22 +458,24 @@ def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
         s, _ = merge_sinks(s, cfg)
     p, s = cull_bounds(p, s, cfg)
 
-    stats = _coverage_stats(cfg, grid, grav_over, n_unconverged,
-                            _count_nonfinite(p), sink_full,
-                            None if aux is None else aux.pressure)
-    if aux is not None:
-        # the slab decomposition's counters are all the rank's own (local
-        # grids, local gravity, local pressure events) but sink_slots_full
-        # (5), which the replicated sinks give every rank alike
-        summed = psum(stats, axis_name)
-        stats = torch.cat([summed[:5], stats[5:6], summed[6:]])
-    elif axis_name is not None:
-        # the window counters (0-2) come from the replicated sort and
-        # sink_slots_full (5) from replicated sinks: summing them would
-        # multiply them by the rank count.  Only the per-rank h-iteration
-        # (3) and non-finite (4) counts are summed.
-        stats = torch.cat([stats[:3], psum(stats[3:5], axis_name),
-                           stats[5:]])
+    with span("stats"):
+        stats = _coverage_stats(cfg, grid, grav_over, n_unconverged,
+                                _count_nonfinite(p), sink_full,
+                                None if aux is None else aux.pressure)
+        if aux is not None:
+            # the slab decomposition's counters are all the rank's own
+            # (local grids, local gravity, local pressure events) but
+            # sink_slots_full (5), which the replicated sinks give every
+            # rank alike
+            summed = psum(stats, axis_name)
+            stats = torch.cat([summed[:5], stats[5:6], summed[6:]])
+        elif axis_name is not None:
+            # the window counters (0-2) come from the replicated sort and
+            # sink_slots_full (5) from replicated sinks: summing them
+            # would multiply them by the rank count.  Only the per-rank
+            # h-iteration (3) and non-finite (4) counts are summed.
+            stats = torch.cat([stats[:3], psum(stats[3:5], axis_name),
+                               stats[5:]])
     if p.capacity != cap0:  # drop the sort's dead pad slots
         p = p.map(lambda a: a[:cap0])
     out = state.replace(particles=p, sinks=s, t=t, dt=dt, stats=stats)
@@ -503,6 +511,7 @@ def init_carries(state: SimState, cfg: SimConfig) -> SimState:
 init_kahan = init_carries
 
 
+@traced("prime")
 def prime(state: SimState, cfg: SimConfig,
           axis_name: Optional[Mesh] = None) -> SimState:
     """Evaluate forces at the current positions (acc/du/dalpha and
@@ -518,6 +527,7 @@ def prime(state: SimState, cfg: SimConfig,
     return state.replace(particles=p, sinks=s)
 
 
+@traced("segment")
 def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
               axis_name: Optional[Mesh] = None) -> SimState:
     """Advance exactly n_steps: global steps, or, with cfg.dt_bins > 1 on
@@ -541,7 +551,8 @@ def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
             out = _step_binned(state, cfg, i % every, held_valid=i > 0)
         else:
             out = _step(state, cfg, axis_name, i % every, held_valid=i > 0)
-        state = out.replace(stats=torch.maximum(out.stats, state.stats))
+        with span("stats"):
+            state = out.replace(stats=torch.maximum(out.stats, state.stats))
     return state
 
 

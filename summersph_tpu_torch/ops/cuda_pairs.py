@@ -81,6 +81,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import Particles
+from ..tracing import span, traced
 from ..utils import build
 from ..utils.units import G, PI
 from . import pairs
@@ -497,6 +498,7 @@ def density_sums_plain(p: Particles, cfg: SimConfig, grid: SortedGrid,
     return rho, omega
 
 
+@traced("density")
 def density(p: Particles, cfg: SimConfig, grid: SortedGrid, active=None,
             act_mask=None, rows=None) -> Particles:
     """`p` with rho and omega from the density pass: the sums, the self
@@ -519,6 +521,7 @@ def density(p: Particles, cfg: SimConfig, grid: SortedGrid, active=None,
     return tgt.replace(rho=rho, omega=omega)
 
 
+@traced("force")
 def forces(p: Particles, cfg: SimConfig, grid: SortedGrid, rows=None):
     """(acc [N, 3], du, dalpha) of the force pass, zero on dead rows: the
     sums and the alpha switch (`pairs.alpha_rate`).  Counterpart of
@@ -815,16 +818,17 @@ def pair_eval(p: Particles, cfg: SimConfig, grid: SortedGrid,
     reads the stale values of inactive neighbours, and the returned rates
     are exactly 0 outside alive & act_mask."""
     p = eos_update(density(p, cfg, grid, active, act_mask), cfg)
-    out = force_sums(p, cfg, grid, grav_split, active)
-    ax, ay, az, du, araw = out[:5]
-    acc = torch.stack([ax, ay, az], dim=-1)
-    dalpha = pairs.alpha_rate(araw, p.rho, p.alpha, p.cs, p.h, cfg)
-    alive = p.alive if act_mask is None else p.alive & act_mask
-    res = (p, torch.where(alive[:, None], acc, 0.0),
-           torch.where(alive, du, 0.0), torch.where(alive, dalpha, 0.0))
-    if grav_split is not None:
-        res += (torch.where(alive[:, None], torch.stack(out[5], dim=-1),
-                            0.0),)
+    with span("force"):
+        out = force_sums(p, cfg, grid, grav_split, active)
+        ax, ay, az, du, araw = out[:5]
+        acc = torch.stack([ax, ay, az], dim=-1)
+        dalpha = pairs.alpha_rate(araw, p.rho, p.alpha, p.cs, p.h, cfg)
+        alive = p.alive if act_mask is None else p.alive & act_mask
+        res = (p, torch.where(alive[:, None], acc, 0.0),
+               torch.where(alive, du, 0.0), torch.where(alive, dalpha, 0.0))
+        if grav_split is not None:
+            res += (torch.where(alive[:, None], torch.stack(out[5], dim=-1),
+                                0.0),)
     return res
 
 

@@ -17,6 +17,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import Particles
+from ..tracing import traced
 from ..utils.blocks import pick_block, row_blocks, unblock
 from . import pairs
 
@@ -34,6 +35,7 @@ def _dense_block(idx, rows: Particles, cx, cy, cz, cm, calive):
                               calive[None, :])
 
 
+@traced("density")
 def compute_density(rows: Particles, cfg: SimConfig,
                     cols: Particles | None = None) -> Particles:
     """`rows` with rho and Omega from a sum over every column; dead rows

@@ -7,8 +7,10 @@ import torch
 
 from ..config import SimConfig
 from ..state import Particles
+from ..tracing import traced
 
 
+@traced("eos")
 def eos_update(p: Particles, cfg: SimConfig) -> Particles:
     rho = torch.where(p.alive, p.rho, 1.0)
     u = torch.where(p.alive, torch.clamp(p.u, min=0.0), 0.0)

@@ -12,6 +12,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import Particles
+from ..tracing import traced
 from ..utils.blocks import pick_block, row_blocks, unblock
 from . import pairs
 
@@ -65,6 +66,7 @@ def _dense_block(idx, rows: Particles, cf: ColFields, cfg: SimConfig):
         col(cf.m), col(cf.alive), cfg)
 
 
+@traced("force")
 def compute_sph_forces(rows: Particles, cfg: SimConfig,
                        cols: Particles | None = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

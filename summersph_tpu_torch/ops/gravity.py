@@ -17,6 +17,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import Particles, Sinks
+from ..tracing import traced
 from ..parallel.comm import psum
 from ..utils.units import G
 from .kernels import grav_softening
@@ -26,6 +27,7 @@ from .kernels import grav_softening
 DIRECT_BUDGET = 1 << 22
 
 
+@traced("gravity_direct")
 def gas_gravity_direct(rows: Particles, cfg: SimConfig,
                        cols: Particles | None = None) -> torch.Tensor:
     """Exact softened gas-gas gravity on `rows` from every particle of
@@ -50,6 +52,7 @@ def gas_gravity_direct(rows: Particles, cfg: SimConfig,
     return torch.where(rows.alive[:, None], acc, 0.0)
 
 
+@traced("sink_gravity")
 def sink_gravity(p: Particles, s: Sinks, axis_name=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(acc_gas [N, 3], acc_sink [S, 3]); masked pairs and coincident

@@ -63,6 +63,7 @@ from ..parallel.comm import (all_gather_tiled, all_to_all_tiled,
                              axis_index, pmax, pmin, psum, psum_scatter)
 from ..parallel.decomp import KX, KY, exchange_rim, rim_short_count
 from ..state import Particles
+from ..tracing import active, count, traced
 from ..utils.units import G, PI
 from .cuda_pairs import grav_short_sums
 from .kernels import grav_softening
@@ -301,6 +302,7 @@ def _fd4_gradient_pruned(phi_m, cell, n: int):
     return [-d(0), -d(1), -d(2)]
 
 
+@traced("pm_long_range")
 def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None,
                   decomp: bool = False):
     """Gaussian-filtered long-range gravitational acceleration (CIC-PM).
@@ -383,6 +385,7 @@ def _short_factor(r, h_i, r_s):
     return grav_softening(r, h_i) - s
 
 
+@traced("grav_sort")
 def gravity_sort(p: Particles, cfg: SimConfig, r_s):
     """The slim sort of the short-range pass: cell keys at cell = r_cut,
     one stable sort, (x, y, z, m, h) gathered, and the 9 windows of every
@@ -414,6 +417,10 @@ def gravity_sort(p: Particles, cfg: SimConfig, r_s):
 
     key_s, perm = torch.sort(padded(key, SENTINEL_KEY), stable=True)
     starts, ends = group_windows(key_s, wg)
+    if active():
+        count("grav_candidates",
+              torch.sum(ends - starts, dtype=torch.int64) * wg)
+        count("grav_rows", torch.sum(p.alive))
     grid = SortedGrid(key=key_s, starts=starts, ends=ends, origin=origin,
                       cell_size=cell,
                       n_clamped=torch.zeros((), dtype=torch.int32,
@@ -423,6 +430,7 @@ def gravity_sort(p: Particles, cfg: SimConfig, r_s):
             padded(p.h, 1.0)[perm], grid, perm, (r_s, r_cut))
 
 
+@traced("grav_short")
 def pm_short_range(p: Particles, cfg: SimConfig, r_s, rows=None,
                    axis_name=None, active_rows=None):
     """Direct complementary pair force within r_cut = effective_rcut_rs *

@@ -27,8 +27,10 @@ import torch
 from ..config import SimConfig
 from ..parallel.comm import all_gather_tiled, psum
 from ..state import PARK_POSITION, Particles, Sinks
+from ..tracing import traced
 
 
+@traced("accrete")
 def accrete(p: Particles, s: Sinks,
             axis_name=None) -> Tuple[Particles, Sinks]:
     """Sinks absorb the live gas inside their accretion radius.
@@ -102,6 +104,7 @@ def accrete(p: Particles, s: Sinks,
     return p, s
 
 
+@traced("create_sinks")
 def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
                  axis_name=None) -> Tuple[Sinks, torch.Tensor]:
     """Spawn a sink at the densest eligible particle, if any.
@@ -165,6 +168,7 @@ def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
     return s, (has_any & ~has_slot).to(torch.int32)
 
 
+@traced("merge_sinks")
 def merge_sinks(s: Sinks, cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
     """Merge real sinks closer than `cfg.sink_merge_factor` x
     min(radius_i, radius_j).
@@ -229,6 +233,7 @@ def merge_sinks(s: Sinks, cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
     return s, torch.sum(absorbed).to(torch.int32)
 
 
+@traced("cull")
 def cull_bounds(p: Particles, s: Sinks,
                 cfg: SimConfig) -> Tuple[Particles, Sinks]:
     """Mask out particles and sinks outside the bounding box."""

@@ -54,6 +54,7 @@ import torch
 from ..config import SimConfig
 from ..parallel.comm import axis_index
 from ..state import Particles
+from ..tracing import traced
 from .cuda_pairs import density
 from .density import compute_density
 from .sorted_grid import (GRID_H_HEADROOM, SORTED_MODES, SortedGrid,
@@ -153,6 +154,7 @@ def _update_smoothing_sorted(p: Particles, cfg: SimConfig):
     return p_out, n_open
 
 
+@traced("h_iter")
 def update_smoothing(p: Particles, cfg: SimConfig, cols=None, grid=None,
                      axis_name=None, key_rows=None, active=None,
                      act_mask=None):

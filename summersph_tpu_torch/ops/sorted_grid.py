@@ -30,6 +30,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import Particles
+from ..tracing import active, count, traced
 
 WINDOW_BITS = 10
 WINDOW = 1 << WINDOW_BITS                      # 1024 cells per axis
@@ -114,6 +115,7 @@ def _pad_particles(p: Particles, padded: int) -> Particles:
                         for f in dataclasses.fields(p)})
 
 
+@traced("sort")
 def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
                    carry_derived: bool = False, extra=None):
     """Sort the particles by cell key and find every group's 9 windows.
@@ -188,6 +190,10 @@ def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
             du=zero, dalpha=zero)
 
     starts, ends = group_windows(key_s, wg)
+    if active():
+        count("sph_candidates",
+              torch.sum(ends - starts, dtype=torch.int64) * wg)
+        count("sph_rows", torch.sum(p.alive))
     grid = SortedGrid(key=key_s, starts=starts, ends=ends, origin=origin,
                       cell_size=cell_size, n_clamped=n_clamped)
     if extra is not None:

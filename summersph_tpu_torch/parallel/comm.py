@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..state import Particles
+from ..tracing import traced
 
 # The integer type of each float type's width, for bit-casting.
 _INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
@@ -227,6 +228,7 @@ def unpack_fields(buf: torch.Tensor, like: Sequence[torch.Tensor]
     return res
 
 
+@traced("gather")
 def all_gather_fields(fields: Sequence[torch.Tensor], mesh: Mesh
                       ) -> List[torch.Tensor]:
     """Each of `fields` (as `pack_fields` takes them) gathered over the

@@ -45,6 +45,7 @@ from ..config import SimConfig
 from ..ops.sorted_grid import (KX, KY, SENTINEL_KEY, SortedGrid, _cell_key,
                                group_windows)
 from ..state import Particles
+from ..tracing import traced
 from .comm import (Mesh, all_gather_tiled, all_to_all_tiled, pack_fields,
                    pmax, pmin, ppermute, psum, unpack_fields)
 
@@ -138,6 +139,7 @@ def _unbundle(p: Particles, key_s: torch.Tensor, fields) -> Particles:
         du=zero, dalpha=zero, **rest)
 
 
+@traced("redistribute")
 def redistribute(p: Particles, cfg: SimConfig, mesh: Mesh, origin,
                  cell_size):
     """Re-own the particles by slabs of the global key order.  Returns
@@ -213,6 +215,7 @@ def redistribute(p: Particles, cfg: SimConfig, mesh: Mesh, origin,
     return key_own, p_own, splitters, n_misowned, n_slab_overflow
 
 
+@traced("exchange_rim")
 def exchange_rim(key_own, p_own: Particles, mesh: Mesh, halo: int,
                  fields=("pos", "vel", "mass", "alpha", "h", "pid"),
                  hops: int = 1):

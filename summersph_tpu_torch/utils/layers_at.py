@@ -1,21 +1,20 @@
 #!/usr/bin/env python3
-"""Time a checkpointed state on one CUDA card: one step by layer, the
-step, and the pair kernels of its config.
+"""Time a checkpointed state on one CUDA card: the step, its layers by
+the program's spans, and the pair kernels of its config.
 
     python3 summersph_tpu_torch/utils/layers_at.py CHECKPOINT [STEPS]
 
 CHECKPOINT is an npz written with its config (`tools.config5` writes one,
 `<out>/checkpoint.npz`).  Printed, for the state as loaded: t, dt, the
 live and sink counts, the h range and the SPH cell; the candidates per
-row of the SPH sort and of the gravity sort (mean and maximum); two
-per-layer breakdowns of one step (`chip_smoke.layer_breakdown`, CUDA
-events); the ms a step of STEPS steps (default 16) of `run_steps` after
-as many warm-up steps, the host clock closed by `torch.cuda.synchronize`;
-the device busy share and the top kernels over 5 steps
-(`chip_smoke.device_busy`); and the config's pair kernels on the state
-(CUDA events, mean of 10 wrapper calls).  The repository root (this
-file's grandparent's parent) is put first on sys.path, for
-`chip_smoke.py` and the package beside it.
+row of the SPH sort and of the gravity sort (mean and maximum); the ms a
+step of STEPS steps (default 16) of `run_steps` after as many warm-up
+steps, the host clock closed by `torch.cuda.synchronize`; the span table
+of 5 more steps under torch.profiler (`chip_smoke.span_table`: host and
+device ms, launches and idle ms of each span name, the busy share); and
+the config's pair kernels on the state (CUDA events, mean of 10 wrapper
+calls).  The repository root (this file's grandparent's parent) is put
+first on sys.path, for `chip_smoke.py` and the package beside it.
 """
 
 import os
@@ -59,8 +58,6 @@ def main(argv=None):
     gext = (ggrid.ends - ggrid.starts).sum(dim=1).float()
     print(f"[{label}] gravity candidates per row: mean "
           f"{float(gext.mean()):.1f} max {int(gext.max())}", flush=True)
-    for _ in range(2):
-        cs.print_layers(cs.layer_breakdown(state, cfg), label)
     warm = run_steps(state, cfg, steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -72,7 +69,7 @@ def main(argv=None):
           f"{wall / steps * 1e3:.3f} ms a step, t {float(warm.t):.6f} -> "
           f"{float(out.t):.6f}, {rate:.6e} particle-steps/s; counters "
           f"{out.stats_dict()}", flush=True)
-    cs.device_busy(out, cfg, 5, label)
+    cs.span_table(out, cfg, 5, label)
     pd = cuda_pairs.pair_eval(p2, cfg, grid)[0]
     calls = {"density": lambda: cuda_pairs.density_sums(p2, cfg, grid),
              "force": lambda: cuda_pairs.force_sums(pd, cfg, grid),
