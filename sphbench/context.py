@@ -1,16 +1,24 @@
 """What a per-layer metric reader (`metrics/<name>.py`) gets: `Context`.
 
-It holds the end state of the window, the configuration, the program's
-modules, the trace of the traced segments (None without a card or
-without one), and helpers that the readers share: CUDA-event timing of a
-call, the pairs a kernel's data need on the end state, and the rows and
-window groups of a pair launch.
+It holds the two ends of the traced span (the `trace_segments` segments
+that ran under the profiler): `state_in`, the first traced segment's
+input state, and `state`, the last traced segment's output; the
+configuration, the program's modules, the trace of that span (None
+without a card), and helpers that the readers share: CUDA-event timing
+of a call, the pairs a kernel's data need over the span, and the rows
+and window groups of a pair launch.
+
+The pairs are counted on both ends and their mean is used: a trapezoid
+over the span, exact where the count changes linearly from the one end
+to the other.  So every reader reads the states the trace timed, and not
+the window's end state, which lies further on the longer a run is, or
+the faster the program.
 """
 
 from __future__ import annotations
 
-import functools
 import math
+import sys
 
 import torch
 
@@ -21,11 +29,13 @@ LANES = 128   # the program's padding granule of a sort
 
 
 class Context:
-    def __init__(self, *, prog, cfg, sim, state, trace, steps_traced):
+    def __init__(self, *, prog, cfg, sim, state_in, state, trace,
+                 steps_traced):
         self.prog = prog            # namespace of the program's modules
         self.cfg = cfg              # the program's SimConfig
         self.sim = sim              # the configuration's fields, a dict
-        self.state = state          # the program's state at the window's end
+        self.state = state          # the traced span's output state
+        self.state_in = state_in    # its input state
         self.trace = trace          # trace.Trace or None
         self.steps_traced = steps_traced
         self.on_card = state.particles.pos.is_cuda
@@ -60,23 +70,28 @@ class Context:
         return self.rows // self.cfg.window_group
 
     # -------------------------------------------------------------- pairs
-    @functools.cached_property
-    def _ref_state(self):
-        p = self.state.particles
-        return {"pos": p.pos.double(), "h": p.h.double(), "alive": p.alive,
-                "mass": p.mass.double()}
-
     def pairs(self, kind: str) -> float:
-        """Pairs of distinct live particles the end state needs: `density`
-        (r < 2 h_i inside the 27-cell stencil of the step's grid), `force`
-        (r < 2 max(h_i, h_j) there), `gravity` (r < r_cut of the
-        short-range split)."""
+        """Pairs of distinct live particles a step of the traced span
+        needs, the mean of the counts on its two ends: `density` (r < 2
+        h_i inside the 27-cell stencil of the step's grid), `force` (r < 2
+        max(h_i, h_j) there), `gravity` (r < r_cut of the short-range
+        split).  Prints one line on standard error: each end's simulated
+        t and count, and the mean."""
         if kind not in self._pairs:
-            self._pairs[kind] = self._count_pairs(kind)
+            ends = (self.state_in, self.state)
+            counts = [self._count_pairs(s, kind) for s in ends]
+            mean = math.fsum(counts) / 2
+            print(f"pairs {kind}: t " + " -> ".join(
+                f"{float(s.t):.9g}" for s in ends) + " yr, counted "
+                + " -> ".join(f"{c:.0f}" for c in counts)
+                + f", mean {mean:.1f}", file=sys.stderr, flush=True)
+            self._pairs[kind] = mean
         return self._pairs[kind]
 
-    def _count_pairs(self, kind: str) -> float:
-        st = self._ref_state
+    def _count_pairs(self, state, kind: str) -> float:
+        p = state.particles
+        st = {"pos": p.pos.double(), "h": p.h.double(), "alive": p.alive,
+              "mass": p.mass.double()}
         pos, h = st["pos"], st["h"]
         if kind == "gravity":
             r_cut = reference.rcut_rs(self.sim) * reference.pm_geometry(

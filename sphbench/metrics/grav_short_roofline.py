@@ -1,6 +1,7 @@
 """The short-range gravity kernel's share of its roofline: the least time
-of its launches on the pairs within r_cut of the end state over its
-device time in the traced segments (kernel names starting with
+of its launches on the pairs within r_cut a step of the traced span
+needs (`Context.pairs`: the mean of the counts on the span's two ends)
+over its device time in the traced segments (kernel names starting with
 `grav_short`)."""
 
 NAME = "grav_short_roofline"

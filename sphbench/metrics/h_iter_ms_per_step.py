@@ -1,6 +1,7 @@
 """ms of the h-iteration of one step: CUDA events around the benchmark's
-calls of `update_smoothing` on the window's end state, on the step's own
-sort with the force pass's density, as `integrate._step` calls it."""
+calls of `update_smoothing` on the traced span's output state (the last
+traced segment's), on the step's own sort with the force pass's density,
+as `integrate._step` calls it."""
 
 NAME = "h_iter_ms_per_step"
 UNIT = "ms"

@@ -2,7 +2,7 @@
 of the device operations launched inside the program's `h_iter` spans
 (`update_smoothing`: the Newton updates and their density re-sums) in the
 traced segments, over the steps (`h_iter_ms_per_step` times it by calling
-it again on the end state)."""
+it again on the traced span's output state)."""
 
 from sphbench import spans
 

@@ -1,6 +1,6 @@
 """ms of one particle-mesh solve: CUDA events around the benchmark's own
-calls of `pm_long_range` on the window's end state, over the solves they
-made (`pm_long_range.solves`)."""
+calls of `pm_long_range` on the traced span's output state (the last
+traced segment's), over the solves they made (`pm_long_range.solves`)."""
 
 NAME = "pm_ms_per_solve"
 UNIT = "ms"

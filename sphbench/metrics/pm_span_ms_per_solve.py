@@ -2,7 +2,8 @@
 of the device operations launched inside the program's `pm_long_range`
 spans (a solve: deposit, FFTs, gradient, gather; a step that holds the far
 field opens none) in the traced segments, over their count
-(`pm_ms_per_solve` times it by calling it again on the end state)."""
+(`pm_ms_per_solve` times it by calling it again on the traced span's
+output state)."""
 
 from sphbench import spans
 

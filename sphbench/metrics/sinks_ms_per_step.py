@@ -1,7 +1,7 @@
 """ms of the sink layers of one step: CUDA events around the benchmark's
-calls, on the window's end state, of `sink_gravity`, `accrete` and, where
-the configuration runs them, `create_sinks` (variable h) and
-`merge_sinks` (sink_merge_factor > 0)."""
+calls, on the traced span's output state (the last traced segment's), of
+`sink_gravity`, `accrete` and, where the configuration runs them,
+`create_sinks` (variable h) and `merge_sinks` (sink_merge_factor > 0)."""
 
 NAME = "sinks_ms_per_step"
 UNIT = "ms"

@@ -2,7 +2,7 @@
 of the device operations launched inside the program's `sink_gravity`,
 `create_sinks`, `accrete` and `merge_sinks` spans in the traced segments,
 over the steps (`sinks_ms_per_step` times the same layers by calling them
-again on the end state)."""
+again on the traced span's output state)."""
 
 from sphbench import spans
 

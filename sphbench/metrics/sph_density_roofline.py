@@ -1,7 +1,8 @@
 """The density kernels' share of their roofline: the least time of their
-launches (`roofline.least_seconds` on the pairs the end state needs) over
-their device time in the traced segments, for the kernels whose names
-start with `density_`."""
+launches (`roofline.least_seconds` on the pairs a step of the traced span
+needs, the mean of the counts on its two ends) over their device time in
+the traced segments, for the kernels whose names start with
+`density_`."""
 
 NAME = "sph_density_roofline"
 UNIT = "%"

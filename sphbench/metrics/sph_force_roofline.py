@@ -1,7 +1,8 @@
 """The force kernels' share of their roofline, with the `pack_force`
-launch that forms their records before each: the least time of both over
-their device time in the traced segments (kernel names starting with
-`force_` or `pack_force`)."""
+launch that forms their records before each: the least time of both, on
+the pairs a step of the traced span needs (the mean of the counts on its
+two ends), over their device time in the traced segments (kernel names
+starting with `force_` or `pack_force`)."""
 
 NAME = "sph_force_roofline"
 UNIT = "%"

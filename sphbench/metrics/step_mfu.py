@@ -1,9 +1,9 @@
 """The whole step's share of the card's FP32 peak: the FP32 operations
-the step's pair passes need on the window's end state (the density
-launches, the force launches and, with TreePM, the short-range gravity,
-each as `kernels/<name>.json` counts them, times the launches per step
-the trace saw), per step, over the traced wall time per step and the
-peak.  It bounds every kernel's roofline share from above: a kernel taken
+the step's pair passes need over the traced span (the density launches,
+the force launches and, with TreePM, the short-range gravity, each as
+`kernels/<name>.json` counts them on the mean of the pair counts on the
+span's two ends, times the launches per step the trace saw), per step,
+over the traced wall time per step and the peak.  It bounds every kernel's roofline share from above: a kernel taken
 off the path leaves its share silent, and this number still moves."""
 
 NAME = "step_mfu"

@@ -19,7 +19,8 @@ and it failed when the program's health counters report a non-finite
 value or dropped pairs after it.  With `--trace 1` the first
 `trace_segments` segments run under `torch.profiler` (the card's
 activity) and the per-layer metrics are printed instead of the
-end-to-end ones.
+end-to-end ones; the readers get the states at the two ends of that
+traced span (`Cell.context`), whatever the window did after it.
 
 After the window: the memory peak is read, the program's state freed,
 and a sample of the window's segments, drawn from the seed, is run again
@@ -28,7 +29,9 @@ held against what the program produced (`compare.py`).  The last lines
 on standard error are the compared numbers beside their limits; the last
 line on standard output is the result, one JSON object.  Without a card,
 or with fewer cards than the cell asks for, it prints no result and
-exits 2.
+exits 2.  Where the process holds JAX or the JAX package once the window
+and the reference have run (`jax_modules`), it names them on standard
+error, prints no result and exits 3: the port is measured without them.
 """
 
 import time
@@ -62,6 +65,9 @@ PROGRAM_MODULES = ("integrate", "state", "config", "ops.sorted_grid",
 # value fails a segment
 FAULT_COUNTERS = ("sph_window_overflow", "grav_window_overflow", "nonfinite")
 CACHE_DIR = ROOT / ".sphbench_cache"
+# top-level modules that no run may hold: JAX and the JAX package that the
+# port was made from
+JAX_MODULES = ("jax", "jaxlib", "flax", "summersph_tpu")
 
 
 def load(kind: str, name: str) -> dict:
@@ -105,6 +111,13 @@ def configure(conf: dict, n=None):
         d = sim if block == "sim" else ic
         d[key] = d[key] * scale
     return sim, ic, n
+
+
+def jax_modules() -> list:
+    """The names of `JAX_MODULES` that `sys.modules` holds, compared by
+    whole top-level name (`summersph_tpu_torch` is not `summersph_tpu`)."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)}
+                  & set(JAX_MODULES))
 
 
 def program():
@@ -205,16 +218,22 @@ class Cell:
         """The timed loop, for `seconds` or `segments`; the first `k_trace`
         segments under torch.profiler (the card's activity only).  Returns
         a namespace of what it saw, with `kept`, the seeded reservoir of
-        (segment, S_in, S_out)."""
+        (segment, S_in, S_out), and with `k_trace` the two ends of the
+        traced span: `traced_in`, the first traced segment's input state,
+        and `traced_out`, the output of segment `k_trace` (of the last
+        segment if the window ends first).  They are references, no
+        copies: a state is never written after it is made, as `kept`
+        relies on too.  Without `k_trace` both are None."""
         torch = self.torch
         run_steps = self.prog.integrate.run_steps
         w = types.SimpleNamespace(n_live0=int(state.particles.n_alive),
                                   t0=float(state.t), seg_ms=[], kept=[],
-                                  prof=None)
+                                  prof=None, traced_in=None, traced_out=None)
         rng = random.Random(seed)
         m_check = int(self.traffic["check_segments"])
         if k_trace:
             from torch.profiler import ProfilerActivity, profile
+            w.traced_in = state
             w.prof = profile(activities=[ProfilerActivity.CUDA]
                              if self.on_card else [ProfilerActivity.CPU])
             w.prof.__enter__()
@@ -238,11 +257,13 @@ class Cell:
             k += 1
             if k == k_trace:
                 w.prof.__exit__(None, None, None)
+                w.traced_out = state
             if (segments is not None and k >= segments) or (
                     seconds is not None and now - w0 >= seconds):
                 break
         if k < k_trace:
             w.prof.__exit__(None, None, None)
+            w.traced_out = state
         w.traced = min(k, k_trace)
         w.window_s = last - w0
         w.segments = k
@@ -254,6 +275,16 @@ class Cell:
         w.mem_peak = (torch.cuda.max_memory_allocated() if self.on_card
                       else 0)
         return w
+
+    def context(self, w, trace=None):
+        """What the per-layer readers get (`context.Context`) after a
+        window with `k_trace`: the states at the two ends of the traced
+        span, the trace of that span, and its steps."""
+        from sphbench.context import Context
+
+        return Context(prog=self.prog, cfg=self.cfg, sim=self.sim,
+                       state_in=w.traced_in, state=w.traced_out,
+                       trace=trace, steps_traced=w.traced * self.spb)
 
     def samples(self, w):
         """The kept segments as the reference's float64 dicts, the
@@ -300,7 +331,6 @@ def main(argv=None, device="cuda", n=None) -> int:
     import torch
 
     from sphbench import compare
-    from sphbench.context import Context
     from sphbench.trace import Trace
 
     if device == "cuda" and (not torch.cuda.is_available()
@@ -339,8 +369,7 @@ def main(argv=None, device="cuda", n=None) -> int:
                 tr = Trace(w.prof.events())
             except ValueError as e:
                 print(f"sphbench: trace unread: {e}", file=sys.stderr)
-        ctx = Context(prog=c.prog, cfg=c.cfg, sim=c.sim, state=w.state,
-                      trace=tr, steps_traced=w.traced * c.spb)
+        ctx = c.context(w, tr)
         for mod in readers(args.workload):
             v = mod.read(ctx)
             if v is not None:
@@ -350,7 +379,7 @@ def main(argv=None, device="cuda", n=None) -> int:
             device_info["window_s"] = tr.window_s
             breakdown = {"device_ops": tr.top_ops(10),
                          "idle_gaps": tr.top_gaps(10)}
-        ctx = tr = None
+        ctx = tr = w.traced_in = w.traced_out = None
     w.prof = None
     print(f"card: {card_report() if c.on_card else device}", flush=True)
     print(f"window: {w.segments} segments of {c.spb} steps in "
@@ -371,6 +400,11 @@ def main(argv=None, device="cuda", n=None) -> int:
     correct, lines = compare.judge(compare.worst(readings), wl["limits"])
     print(f"reference: {len(readings)} segments in "
           f"{time.perf_counter() - t_ref:.3f} s", flush=True)
+    found = jax_modules()
+    if found:
+        print(f"sphbench: no result, the run holds {', '.join(found)}",
+              file=sys.stderr, flush=True)
+        return 3
     for key, v, lim, good in lines:
         print(f"check {key}: {v!r} limit {lim!r} {'ok' if good else 'FAIL'}",
               file=sys.stderr, flush=True)

@@ -49,9 +49,10 @@ The eight readers that use it (`metrics/<name>.py`):
 
 `h_iter_ms_per_step`, `pm_ms_per_solve`, `sinks_ms_per_step` and
 `sph_candidates_per_row` are the same layers timed or counted by the
-benchmark's own calls on the window's end state; their `source` labels
-are the benchmark's, kept until a change of the benchmark corrects or
-retires them.  The attribution's own tests are the program's
+benchmark's own calls on the traced span's output state (the candidates
+on both its ends, their mean); their `source` labels are the
+benchmark's, kept until a change of the benchmark corrects or retires
+them.  The attribution's own tests are the program's
 `tests/test_torch_span_table.py`; `tests/test_spans.py` here holds this
 wrapper under a CPU profiler.
 """
