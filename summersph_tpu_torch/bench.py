@@ -53,8 +53,8 @@ def bench_config(n, gravity="none", grav_grid=None, pm_every=None,
     wg_rows = int(os.environ.get("BENCH_WG",
                                  64 if gravity == "none" else 32))
     exact = os.environ.get("BENCH_EXACT", "0") == "1"
-    # the fused short range is valid while r_cut <= the SPH cell, which
-    # holds at grav_grid >= 256 in this geometry
+    # bench.py fuses the short range at grav_grid >= 256, where r_cut
+    # fits the SPH cell in this geometry
     fuse = os.environ.get("BENCH_FUSE",
                           "1" if grav_grid >= 256 else "0") == "1"
     if pm_every is None:

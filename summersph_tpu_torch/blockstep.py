@@ -38,11 +38,11 @@ from typing import Optional
 import torch
 
 from .config import SimConfig
-from .integrate import _count_nonfinite, _coverage_stats
+from .integrate import _count_nonfinite, _coverage_stats, fused_split
 from .ops.cuda_pairs import pair_eval
 from .ops.gravity import sink_gravity
-from .ops.pm_gravity import (PM_MODES, pm_geometry, pm_long_range_held,
-                             pm_short_range, recompute_far_field)
+from .ops.pm_gravity import (PM_MODES, pm_long_range_held, pm_short_range,
+                             recompute_far_field)
 from .ops.sinks import accrete, create_sinks, cull_bounds, merge_sinks
 from .ops.smoothing import update_smoothing
 from .ops.sorted_grid import group_worklist, sort_h_pad, sort_particles
@@ -178,12 +178,6 @@ def _step_binned(state: SimState, cfg: SimConfig, pm_phase: Optional[int],
                                 delta)
             p, s = _drift(p, s, delta)
 
-            # sort at the drifted positions; stale fields and the rung ride
-            p2, grid, rung = sort_particles(p, cfg, h_pad=h_pad,
-                                            carry_derived=True, extra=rung)
-            act = p2.alive & closing_mask(rung, j, n_sub)
-            gate = group_worklist(act, cfg.window_group)
-
             # far field: solved at most at the base step's first substep, held
             # after it (the first substep leaves a valid held force behind)
             phase = (pm_phase or 0) if j == 0 else 1
@@ -191,15 +185,19 @@ def _step_binned(state: SimState, cfg: SimConfig, pm_phase: Optional[int],
             grav_split = None
             if fuse:
                 # decide here, once: the fused kernel needs the split before
-                # the solve, and `pm_long_range_held` below must agree without
-                # reading the held split again
-                if recompute_far_field(phase, r_s_held, valid):
-                    r_s_use = pm_geometry(p2, cfg)[2]
-                    phase = 0
-                else:
-                    r_s_use = r_s_held.to(dtype)
-                    valid = True
-                grav_split = (r_s_use, cfg.effective_rcut_rs() * r_s_use)
+                # the sort and the solve, and `pm_long_range_held` below must
+                # agree without reading the held split again
+                recompute = recompute_far_field(phase, r_s_held, valid)
+                grav_split = fused_split(p, cfg, recompute, r_s_held)
+                phase, valid = (0, valid) if recompute else (phase, True)
+
+            # sort at the drifted positions; stale fields and the rung ride;
+            # a fused step's cell is at least r_cut (`integrate.force_eval`)
+            p2, grid, rung = sort_particles(
+                p, cfg, h_pad=h_pad, carry_derived=True, extra=rung,
+                min_cell=None if grav_split is None else grav_split[1])
+            act = p2.alive & closing_mask(rung, j, n_sub)
+            gate = group_worklist(act, cfg.window_group)
 
             out = pair_eval(p2, cfg, grid, grav_split, active=gate,
                             act_mask=act)
@@ -212,8 +210,6 @@ def _step_binned(state: SimState, cfg: SimConfig, pm_phase: Optional[int],
                 p2d = p2d.replace(acc_ext=acc_long)
                 if fuse:
                     acc_new = acc_new + acc_long + out[4]
-                    grav_over = torch.where(grav_split[1] <= grid.cell_size, 0,
-                                            torch.sum(act)).to(torch.int32)
                 else:
                     acc_short, grav_over = pm_short_range(p2d, cfg, r_s_held,
                                                           active_rows=act)

@@ -661,9 +661,9 @@ struct ForceRow {
 // read from the staged 4 h_j^2).  FUSE adds (gx, gy, gz)[i], the
 // short-range gravity sums over the same candidates for 0 < r < r_cut (the
 // Pallas fuse_grav form), from a second mask of the same test; they equal
-// the Pallas sums even on a step whose r_cut exceeds the SPH cell (a step
-// integrate.py reports in the grav_window_overflow slot).  Without FUSE
-// the split and gravity outputs are unused.  The rows' records are
+// the Pallas sums even on a step whose r_cut exceeds the SPH cell (the
+// port's fused steps floor the cell at r_cut, so they run none).  Without
+// FUSE the split and gravity outputs are unused.  The rows' records are
 // geo_rows and attr_rows (with h, pres, omega), the columns' geo, attr and
 // sup2.
 template <bool VARH, bool FUSE, bool GATED>

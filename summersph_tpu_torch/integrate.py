@@ -106,17 +106,25 @@ def check_supported(cfg: SimConfig, axis_name: Optional[Mesh] = None):
                         f"not {axis_name!r}")
 
 
+def fused_split(p: Particles, cfg: SimConfig, recompute: bool, r_s_held):
+    """(r_s, r_cut), 0-d tensors, of a fused step: the split the far field
+    will be solved with on `p` (`pm_geometry` reads the live box, whatever
+    the particles' order), or on a held step the held one."""
+    r_s = pm_geometry(p, cfg)[2] if recompute else r_s_held.to(p.pos.dtype)
+    return r_s, cfg.effective_rcut_rs() * r_s
+
+
 @traced("force_eval")
 def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
                axis_name: Optional[Mesh] = None, pm=None):
     """Sort -> density -> EOS -> SPH forces -> self-gravity -> sink gravity.
 
     Returns (particles with rho/P/cs/omega/acc/du/dalpha filled, sinks with
-    acc, aux = (grid, grav_overflow, pm_r_s)).  grav_overflow is 0 except
-    on a fused step whose r_cut exceeds the SPH cell; pm_r_s is the split
-    the (possibly held) far field was built with when cfg.pm_every > 1,
-    else None.  `pm` = (pm_phase, r_s_held, held_valid) drives the
-    far-field subcycle (`pm_gravity.recompute_far_field`); None recomputes.
+    acc, aux = (grid, grav_overflow, pm_r_s)).  grav_overflow counts the
+    rows whose short range lost pairs (none on a fused step: its SPH sort
+    cell is at least r_cut); pm_r_s is the split the (possibly held) far
+    field was built with when cfg.pm_every > 1, else None.  `pm` =
+    (pm_phase, r_s_held, held_valid) drives the far-field subcycle (`pm_gravity.recompute_far_field`); None recomputes.
     The returned particles are in sorted order and may be padded beyond
     the caller's capacity; `step` and `prime` slice back (the dense engine
     keeps the caller's order).  With `axis_name` `p` is this rank's rows
@@ -182,7 +190,6 @@ def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
     With variable h the sort carries cell headroom (`sort_h_pad`:
     cfg.sort_h_pad, or 1.25 under 'grid'), so the same grid stays exact
     through the step's h-iteration."""
-    p2, sgrid = sort_particles(p, cfg, h_pad=sort_h_pad(cfg))
     pm_grav = cfg.gravity in PM_MODES
     fuse = cfg.grav_fuse_short and pm_grav
     phase = r_s_held = None
@@ -190,16 +197,15 @@ def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
     if pm_grav and cfg.pm_every > 1 and pm is not None:
         phase, r_s_held, held_valid = pm
 
-    # The fused force kernel needs the split before the long-range solve:
-    # pm_geometry gives the value the solve will use; on a held step the
-    # complement must match the held split instead.
+    # The fused force kernel needs the split before the sort and the
+    # long-range solve: its short range rides the SPH windows, which hold
+    # every pair within r_cut once the sort cell is at least r_cut.
     grav_split = None
     if fuse:
-        if recompute_far_field(phase, r_s_held, held_valid):
-            r_s_use = pm_geometry(p2, cfg)[2]
-        else:
-            r_s_use = r_s_held.to(p2.pos.dtype)
-        grav_split = (r_s_use, cfg.effective_rcut_rs() * r_s_use)
+        grav_split = fused_split(p, cfg, recompute_far_field(
+            phase, r_s_held, held_valid), r_s_held)
+    p2, sgrid = sort_particles(p, cfg, h_pad=sort_h_pad(cfg), min_cell=(
+        None if grav_split is None else grav_split[1]))
 
     out = pair_eval(p2, cfg, sgrid, grav_split)
     p2, acc, du, dalpha = out[:4]
@@ -215,11 +221,6 @@ def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
             p2 = p2.replace(acc_ext=acc_long)
             pm_r_s = r_s_out
         acc = acc + acc_long + out[4]
-        # the fused sums ride the SPH windows, which bound every gravity
-        # pair only while r_cut <= the sort cell; a step that breaks this
-        # reports every live row, loud, never silent
-        grav_over = torch.where(grav_split[1] <= sgrid.cell_size, 0,
-                                torch.sum(p2.alive)).to(torch.int32)
     elif pm_grav:
         if cfg.pm_every > 1:
             acc_pm, grav_over, acc_long, pm_r_s = gas_gravity_pm_held(

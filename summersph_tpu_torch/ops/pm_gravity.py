@@ -63,7 +63,7 @@ from ..parallel.comm import (all_gather_tiled, all_to_all_tiled,
                              axis_index, pmax, pmin, psum, psum_scatter)
 from ..parallel.decomp import KX, KY, exchange_rim, rim_short_count
 from ..state import Particles
-from ..tracing import active, count, traced
+from ..tracing import active, count, span, traced
 from ..utils.units import G, PI
 from .cuda_pairs import grav_short_sums
 from .kernels import grav_softening
@@ -197,6 +197,20 @@ def _cic_gather(field, pos, origin, cell, n):
     return out
 
 
+def _phi_k(rho, cfg: SimConfig, cell, npad: int):
+    """The potential's rfft over the zero-padded (npad^3) mesh: the pad,
+    the forward transform and the product with the Green's function."""
+    n = rho.shape[0]
+    rho_pad = torch.zeros((npad, npad, npad), dtype=rho.dtype,
+                          device=rho.device)
+    rho_pad[:n, :n, :n] = rho
+    rho_k = torch.fft.rfftn(rho_pad)
+    del rho_pad
+    # the table is K / cell in cell units; the DFT -> integral volume
+    # factor cell^3 gives phi_k = rho_k K_k cell^2
+    return rho_k * grav_tables(cfg, rho.dtype, rho.device) * (cell * cell)
+
+
 def _fd4_gradient(phi, cell):
     """4th-order central-difference force F = -grad phi, axis by axis.
     The wrap-around reads at the crop edges hit the padded half of the
@@ -314,54 +328,64 @@ def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None,
     p_rows, the mesh is summed over the ranks, and acc is p_rows's.  With
     `decomp` and `axis_name` (the slab decomposition) `p` is this rank's
     slab: the box is reduced over the ranks, and with grav_fft='matmul'
-    the mesh is solved by `poisson_pencil` where `pencil_tiles` holds."""
+    the mesh is solved by `poisson_pencil` where `pencil_tiles` holds.
+
+    Its four child spans cover the whole solve: `pm_deposit` (the box, the
+    CIC deposit, the sum over the ranks), `pm_poisson` (the zero pad, the
+    forward transform, the Green's product and, with the fd gradient, the
+    inverse; the pencil solve whole), `pm_gradient` (the fd gradient and
+    the crop; with the spectral gradient also its three inverse
+    transforms) and `pm_gather` (the CIC interpolation to the
+    particles)."""
     if cfg.grav_fft == "matmul" and cfg.grav_gradient != "fd":
         raise ValueError("grav_fft='matmul' implements the 'fd' gradient "
                          "only (set grav_gradient='fd' or grav_fft='xla')")
     n = cfg.grav_grid
     npad = 2 * n  # isolated (vacuum) boundaries: zero-pad 2x per axis
     dtype, dev = p.pos.dtype, p.pos.device
-    origin, cell, r_s = pm_geometry(p, cfg, axis_name, decomp)
-
     p_dep = p if rows is None else rows[0]
-    m = torch.where(p_dep.alive, p_dep.mass, 0.0)
-    rho = _cic_deposit(p_dep.pos, m, origin, cell, n) / cell ** 3
-    if (decomp and axis_name is not None and cfg.grav_fft == "matmul"
-            and pencil_tiles(n, axis_name.size)):
-        phi_m = poisson_pencil(rho, grav_tables(cfg, dtype, dev),
-                               cell * cell, axis_name)
-        force = torch.stack(_fd4_gradient_pruned(phi_m, cell, n), dim=-1)
-        acc = _cic_gather(force, p_dep.pos, origin, cell, n)
-        pm_long_range.solves += 1
+    pencil = (decomp and axis_name is not None and cfg.grav_fft == "matmul"
+              and pencil_tiles(n, axis_name.size))
+    with span("pm_deposit"):
+        origin, cell, r_s = pm_geometry(p, cfg, axis_name, decomp)
+        m = torch.where(p_dep.alive, p_dep.mass, 0.0)
+        rho = _cic_deposit(p_dep.pos, m, origin, cell, n) / cell ** 3
+        if axis_name is not None and not pencil:
+            rho = psum(rho, axis_name)
+    if pencil:
+        with span("pm_poisson"):
+            phi_m = poisson_pencil(rho, grav_tables(cfg, dtype, dev),
+                                   cell * cell, axis_name)
+        with span("pm_gradient"):
+            force = torch.stack(_fd4_gradient_pruned(phi_m, cell, n), dim=-1)
         pm_long_range.pencil_solves += 1
-        return (torch.where(p_dep.alive[:, None], acc.to(dtype), 0.0),
-                origin, cell, r_s)
-    if axis_name is not None:
-        rho = psum(rho, axis_name)
-    rho_pad = torch.zeros((npad, npad, npad), dtype=dtype, device=dev)
-    rho_pad[:n, :n, :n] = rho
-    rho_k = torch.fft.rfftn(rho_pad)
-    del rho_pad
-    # the table is K / cell in cell units; the DFT -> integral volume
-    # factor cell^3 gives phi_k = rho_k K_k cell^2
-    phi_k = rho_k * grav_tables(cfg, dtype, dev) * (cell * cell)
-    del rho_k
-    shape = (npad, npad, npad)
-    if cfg.grav_gradient == "fd":
-        grads = _fd4_gradient(torch.fft.irfftn(phi_k, s=shape), cell)
+    elif cfg.grav_gradient == "fd":
+        with span("pm_poisson"):
+            phi = torch.fft.irfftn(_phi_k(rho, cfg, cell, npad),
+                                   s=(npad,) * 3)
+        with span("pm_gradient"):
+            grads = _fd4_gradient(phi, cell)
+            del phi
+            force = torch.stack([g[:n, :n, :n] for g in grads], dim=-1)
+            del grads
     else:  # exact spectral gradient F(k) = -i k phi(k)
-        kx = torch.fft.fftfreq(npad, dtype=dtype, device=dev) * (2.0 * PI)
-        kz = torch.fft.rfftfreq(npad, dtype=dtype, device=dev) * (2.0 * PI)
-        grads = [torch.fft.irfftn((-1j) * (k / cell) * phi_k, s=shape)
-                 for k in (kx[:, None, None], kx[None, :, None],
-                           kz[None, None, :])]
-    del phi_k
-    force = torch.stack([g[:n, :n, :n] for g in grads], dim=-1)
-    del grads
-    acc = _cic_gather(force, p_dep.pos, origin, cell, n)
+        with span("pm_poisson"):
+            phi_k = _phi_k(rho, cfg, cell, npad)
+        with span("pm_gradient"):
+            kx = torch.fft.fftfreq(npad, dtype=dtype, device=dev) * (2.0 * PI)
+            kz = torch.fft.rfftfreq(npad, dtype=dtype, device=dev) * (2.0 * PI)
+            grads = [torch.fft.irfftn((-1j) * (k / cell) * phi_k,
+                                      s=(npad,) * 3)
+                     for k in (kx[:, None, None], kx[None, :, None],
+                               kz[None, None, :])]
+            del phi_k
+            force = torch.stack([g[:n, :n, :n] for g in grads], dim=-1)
+            del grads
+    with span("pm_gather"):
+        acc = _cic_gather(force, p_dep.pos, origin, cell, n)
+        acc = torch.where(p_dep.alive[:, None], acc.to(dtype), 0.0)
     pm_long_range.solves += 1
-    return (torch.where(p_dep.alive[:, None], acc.to(dtype), 0.0), origin,
-            cell, r_s)
+    return acc, origin, cell, r_s
 
 
 pm_long_range.solves = 0

@@ -117,7 +117,7 @@ def _pad_particles(p: Particles, padded: int) -> Particles:
 
 @traced("sort")
 def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
-                   carry_derived: bool = False, extra=None):
+                   carry_derived: bool = False, extra=None, min_cell=None):
     """Sort the particles by cell key and find every group's 9 windows.
 
     Returns (sorted particles, padded with dead slots to a multiple of
@@ -129,7 +129,9 @@ def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
     `carry_derived` (the block-timestep substep sort, blockstep.py), where
     they ride the sort too: inactive rows go on serving their last
     evaluation's rho/P/cs/omega to their active neighbours, and their
-    carried acc/du/dalpha to their own later kicks.
+    carried acc/du/dalpha to their own later kicks.  `min_cell`, a 0-d
+    tensor, is a floor on the cell: the fused force kernel's r_cut, so
+    that the 27 cells around a row hold every pair within it.
     """
     B = cfg.sorted_block
     wg = cfg.window_group
@@ -164,6 +166,8 @@ def sort_particles(p: Particles, cfg: SimConfig, h_pad: float = 1.0,
         h_cell = torch.index_select(
             hs, 0, torch.clamp(idx, 0, cap - 1).reshape(1))[0]
     cell_size = torch.clamp(2.0 * h_cell * h_pad, min=1.0e-12)
+    if min_cell is not None:
+        cell_size = torch.maximum(cell_size, min_cell.to(dtype))
 
     key = torch.where(p.alive, _cell_key(p.pos, origin, cell_size),
                       SENTINEL_KEY)

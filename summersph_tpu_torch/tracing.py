@@ -28,12 +28,13 @@ mode, the slab decomposition, the dense engine, block steps): `prime`,
 `segment` (`run_steps`), `step` (`integrate._step`, and the block
 engine's base step with a `substep` child per substep), `kick`, `drift`,
 `force_eval`, `sort`, `density`, `eos`, `force`, `gravity_direct`,
-`pm_long_range` (a solve; a held step opens none), `grav_short` (with its
-`grav_sort` child), `sink_gravity`, `timestep`, `h_iter`, `create_sinks`,
-`accrete`, `merge_sinks`, `cull`, `stats`, and on a mesh `gather`,
-`redistribute` and `exchange_rim`.  The counters, one increment per sort:
-`sph_candidates` (window extents x window_group) and `sph_rows` (live
-rows) in `sort_particles`, `grav_candidates` and `grav_rows` in
+`pm_long_range` (a solve; a held step opens none; its children
+`pm_deposit`, `pm_poisson`, `pm_gradient`, `pm_gather`), `grav_short`
+(with its `grav_sort` child), `sink_gravity`, `timestep`, `h_iter`,
+`create_sinks`, `accrete`, `merge_sinks`, `cull`, `stats`, and on a mesh
+`gather`, `redistribute` and `exchange_rim`.  The counters, one increment
+per sort: `sph_candidates` (window extents x window_group) and `sph_rows`
+(live rows) in `sort_particles`, `grav_candidates` and `grav_rows` in
 `gravity_sort`; ten small device operations a sort (six or seven of them
 kernels, the rest the reductions' memsets), only while a profiler
 records.

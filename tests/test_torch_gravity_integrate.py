@@ -134,17 +134,32 @@ def test_fused_equals_separate_short_range():
 
 
 def test_fused_flags_an_rcut_violation():
-    """A coarse mesh puts r_cut beyond the SPH cell: the fused step reports
-    every live row in grav_window_overflow (tests/test_gravity.py)."""
-    cfg = SimConfig(**{**_LATTICE_KW, "fixed_h": 0.35, "grav_grid": 8},
-                    grav_fuse_short=True)
+    """A coarse mesh puts r_cut beyond the SPH cell 2 h, where the JAX
+    package's fused step reports every live row in grav_window_overflow
+    (tests/test_gravity.py).  The port's fused step sorts on a cell of
+    r_cut instead, so it reports no row and equals the separate short
+    range within test_fused_equals_separate_short_range's 3e-6 of the
+    largest acceleration; where r_cut fits, the cell stays 2 h."""
     st = _lattice_state(0.35, 0.1)
-    _, _, (grid, grav_over, _) = force_eval(st.particles, st.sinks, cfg)
-    assert int(grav_over) == int(st.particles.n_alive) > 0
+    kw = {**_LATTICE_KW, "fixed_h": 0.35, "grav_grid": 8}
+    r_cut = (SimConfig(**kw).effective_rcut_rs()
+             * float(pm_gravity.pm_geometry(st.particles, SimConfig(**kw))[2]))
+    assert r_cut > 2 * 0.35
+    accs = {}
+    for fuse in (False, True):
+        p, _, (grid, grav_over, _) = force_eval(
+            st.particles, st.sinks, SimConfig(**kw, grav_fuse_short=fuse))
+        assert int(grav_over) == 0
+        assert float(grid.cell_size) == pytest.approx(
+            r_cut if fuse else 2 * 0.35, rel=1e-6)
+        accs[fuse] = p.acc.numpy()[np.argsort(p.pid.numpy())]
+    scale = np.abs(accs[False]).max()
+    np.testing.assert_allclose(accs[True], accs[False], atol=3e-6 * scale)
     st = _lattice_state(1.3, 0.2)
     ok = SimConfig(**_LATTICE_KW, grav_fuse_short=True)
-    _, _, (_, grav_over, _) = force_eval(st.particles, st.sinks, ok)
+    _, _, (grid, grav_over, _) = force_eval(st.particles, st.sinks, ok)
     assert int(grav_over) == 0
+    assert float(grid.cell_size) == pytest.approx(2 * 1.3, rel=1e-6)
 
 
 def test_fused_guards_follow_jax():

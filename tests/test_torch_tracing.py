@@ -82,8 +82,12 @@ def disc_step(k):
         + leaves("kick", "timestep", "accrete", "cull", "stats"), k))
 
 
+PM_CHILDREN = ("pm_deposit", "pm_poisson", "pm_gradient", "pm_gather")
+
+
 def collapse_step(k, solve):
-    gravity = ((leaves("pm_long_range") if solve else [])
+    solve_span = ("pm_long_range", None, leaves(*PM_CHILDREN))
+    gravity = (([solve_span] if solve else [])
                + [("grav_short", None, leaves("grav_sort"))])
     return ("step", k, with_step(
         leaves("kick", "drift")
