@@ -8,7 +8,8 @@ caught:
 
 1. print the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
-2. build the CUDA pair kernels from summersph_tpu_torch/csrc with nvcc;
+2. build the CUDA pair kernels and the sink kernels from
+   summersph_tpu_torch/csrc with nvcc (sph_pairs.cu, sinks.cu);
 3. on the N = 131,072 Keplerian disc (bench.py's sweep geometry): hold the
    density and force kernels against their plain PyTorch versions, time
    both with CUDA events, and time the gravity='none' main path;
@@ -21,7 +22,9 @@ caught:
 5. the gravity='none' main path at full size: the N = 1,048,576 disc with
    bench.py's headline config -- prime, run_steps(20) to warm up,
    run_steps(20) timed -- with every launch counter reset just before,
-   then checks (41 launches of each SPH kernel, all health counters zero,
+   then checks (41 launches of each SPH kernel, of sink_gravity's pass
+   and its reduce, 40 of accretion's pass and its reduce, no creation or
+   merging kernel: `sink_expect`; all health counters zero,
    check_health, particles lost only to accretion, finite diagnostics), the
    span table of 5 steps (`span_table`: the program's spans reduced by
    `summersph_tpu_torch/span_table.py`), and each kernel against its
@@ -56,7 +59,9 @@ caught:
    config 5 phases take too) at N = 1,048,576 (variable h, TreePM grid 128
    separate, pm_every 4, 128 sink slots, merging): prime, run_steps(20)
    warm-up, run_steps(20) timed; 121 density_var_h, 41 force_var_h, 41
-   grav_short launches and 11 mesh solves, no fixed-h kernel; the window,
+   grav_short launches and 11 mesh solves, no fixed-h kernel; the sink
+   kernels as in phase 5 and 40 launches each of creation's pass and
+   pick and of merge_sinks (phases 6, 7 and 9 hold them too); the window,
    non-finite and sink-slot counters 0 (sph_clamped and h_unconverged are
    printed: the JAX package counts them too); check_health, mass
    conservation, particle-steps/s, peak memory, the span table with the
@@ -142,7 +147,10 @@ caught:
       and force_fixed_h_rows) and config 5 (20 + 20 steps: 121
       density_var_h_rows, 41 force_var_h_rows and 41 grav_short_rows
       launches, 11 mesh solves), no whole-set launch of any pair kernel,
-      the health checks of phases 5 and 11, and each run held per pid
+      the health checks of phases 5 and 11, the sink layers through
+      their kernels (each one-block kernel launched twice a pass, for
+      the rank's sums and after their sum over the ranks), and each run
+      held per pid
       against the single-device run from the same state at
       tests/test_sharding.py's tolerances (printed: whether bit for bit),
       with both runs' ms per step;
@@ -163,8 +171,9 @@ caught:
       make_sharded_run_steps (prime + SLAB_HOLD + SLAB_TIMED steps): the
       launches by form (the key_rows form of the four `_rows` SPH
       entry points, `grav_short` whole on the local set, the mesh solves
-      all through the pencil solve), no other pair launch; the health
-      checks of phases 5 and 11, decomp_pressure and nonfinite 0; the
+      all through the pencil solve), no other pair launch, the sink
+      kernels as in 19b; the health checks of phases 5 and 11,
+      decomp_pressure and nonfinite 0; the
       state after prime + SLAB_HOLD steps held per pid against the one
       device run at tests/test_decomp.py's tolerances; ms a step beside
       one device and gather mode on the same state, the collectives'
@@ -227,6 +236,19 @@ caught:
       'grid' and on 'sorted': the L2 within 5e-4 of 0.01383, all 400
       alive, only density_fixed_h, force_fixed_h and pack_force
       launched, as often each; the span table of 5 steps;
+24. the sink layers at N = 1,048,576 (run after phase 23, before the
+   results of phase 18): on config 5's ICs, once with its own slots (128,
+   one live: the massless dummy) and once with all 128 live and massive,
+   at 128 live rows spread through the cloud (radius 2 h, the creation
+   threshold at the 0.999 quantile of m (eta / h)^3): each of
+   `sink_gravity`, `create_sinks`, `accrete` and `merge_sinks` against
+   its plain version (every mask, index, slot and copied field exactly,
+   the sums in float64 by `hold_exact`), launched twice bit for bit; the
+   layer's kernel ms against its plain ms (CUDA events, the layer and
+   each call) and its launches a call of each; the kernels' own device
+   ms from the profiler, beside their bounds (`sink_bound_ms`: the pairs
+   each kernel evaluates on these slots and rows); the layer with 128
+   live slots under SINK_LIVE_MS a step;
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
@@ -234,7 +256,10 @@ caught:
    all the rows of its path, its whole form's on the same state; for a
    key_rows form its whole form's pairs and the bytes of its rows and of
    its rim-extended columns; its launches from phases 19b and 20a, its
-   times from 19a and 20b) and, last, {"ok": true, "device": ...}.
+   times from 19a and 20b; each sink kernel twice, with config 5's slots
+   and, its name ending in SINK_LIVE, with 128 live, its times and
+   bounds from phase 24, its launches from phase 11) and, last, {"ok":
+   true, "device": ...}.
 
 For the pair kernels, which test every candidate of a row's windows and
 run the pair arithmetic on the survivors only, the kernel checks print the
@@ -337,7 +362,22 @@ def kernel_name(wrapper, attr):
             + ("_grav" if "fused_" in attr else "") + form)
 
 
+# the sink kernels, in the order of ops.cuda_sinks.launch_counters()
+SINK_KERNELS = ("sink_gravity_pass", "sink_gravity_reduce",
+                "create_sinks_pass", "create_sinks_pick", "accrete_pass",
+                "accrete_reduce", "merge_sinks")
+
+
+def sink_launches():
+    from summersph_tpu_torch.ops import cuda_sinks
+
+    return {name: getattr(f, a) for name, (f, a)
+            in zip(SINK_KERNELS, cuda_sinks.launch_counters())}
+
+
 def launch_counts():
+    """The launches of every pair kernel and sink kernel, the force packs
+    and the mesh solves since the last `reset_counts`."""
     from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
 
     counts = {kernel_name(w, a): getattr(w, a)
@@ -345,6 +385,7 @@ def launch_counts():
     counts["pack_force"] = cuda_pairs.pack_force.launches
     counts["mesh solves"] = pm_gravity.pm_long_range.solves
     counts["pencil solves"] = pm_gravity.pm_long_range.pencil_solves
+    counts.update(sink_launches())
     return counts
 
 
@@ -352,10 +393,52 @@ def nonzero(counts):
     return {name: k for name, k in counts.items() if k}
 
 
+def pair_launches(counts):
+    """`counts` without the sink kernels, for the checks of a path's pair
+    kernels, packs and solves alone."""
+    return {name: k for name, k in counts.items() if name not in SINK_KERNELS}
+
+
+def sink_expect(cfg, steps):
+    """The sink kernels' launches of prime + `steps` single-device steps
+    that each evaluate the forces once: sink_gravity's pass and its one
+    reduce once a force pass, accretion's pass and reduce once a step,
+    creation's pass and pick once a step with variable h, merging once a
+    step where cfg.sink_merge_factor > 0."""
+    var = cfg.fixed_h is None
+    merge = cfg.sink_merge_factor > 0.0
+    return {"sink_gravity_pass": 1 + steps, "sink_gravity_reduce": 1 + steps,
+            "create_sinks_pass": steps if var else 0,
+            "create_sinks_pick": steps if var else 0,
+            "accrete_pass": steps, "accrete_reduce": steps,
+            "merge_sinks": steps if merge else 0}
+
+
+def require_sinks_on_a_mesh(label, var):
+    """The sink layers of a mesh path went through their kernels: each
+    pass once a call, each one-block kernel twice (the rank's sums, then
+    the finish on their sum over the ranks), sink_gravity once more than
+    accrete (prime's force pass); with variable h creation and merging as
+    often as accretion."""
+    got = sink_launches()
+    calls = got["accrete_pass"]
+    want = {"sink_gravity_pass": calls + 1,
+            "sink_gravity_reduce": 2 * (calls + 1), "accrete_pass": calls,
+            "accrete_reduce": 2 * calls,
+            "create_sinks_pass": calls if var else 0,
+            "create_sinks_pick": 2 * calls if var else 0,
+            "merge_sinks": calls if var else 0}
+    require(calls > 0 and got == want,
+            f"{label}: sink launches {got}, expected {want}")
+    print(f"[{label}] sink kernel launches {nonzero(got)}", flush=True)
+
+
 def reset_counts():
-    from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
+    from summersph_tpu_torch.ops import cuda_pairs, cuda_sinks, pm_gravity
 
     for wrapper, attr in cuda_pairs.launch_counters():
+        setattr(wrapper, attr, 0)
+    for wrapper, attr in cuda_sinks.launch_counters():
         setattr(wrapper, attr, 0)
     cuda_pairs.pack_force.launches = 0
     pm_gravity.pm_long_range.solves = 0
@@ -943,6 +1026,7 @@ def run_path(state, cfg, expect, label, check):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
           f"{time.perf_counter() - t0:.1f} s with prime and warm-up",
           flush=True)
+    expect = {**sink_expect(cfg, 2 * STEPS), **expect}
     for name, count in expect.items():
         require(launches[name] == count,
                 f"{label}: {name} counted {launches[name]}, expected {count}")
@@ -1343,7 +1427,7 @@ def binned_path(state, cfg, bins, steps, per_substep, label, check,
     wall = time.perf_counter() - t0
     launches = launch_counts()
     substeps = n_sub * sum(steps)
-    expect = {name: 0 for name in launches}
+    expect = {name: 0 for name in pair_launches(launches)}
     expect.update({name: k * substeps for name, k in per_substep.items()})
     expect["mesh solves"] = 2 if cfg.gravity != "none" else 0
     del expect["pack_force"]
@@ -1530,7 +1614,7 @@ def cli_run_checks(launches, run, label):
     """One pair-kernel launch of each of `run`'s kernels a step plus one
     for prime, no other pair kernel, health counters zero."""
     steps = run["steps"]
-    pair = {k: v for k, v in nonzero(launches).items()
+    pair = {k: v for k, v in nonzero(pair_launches(launches)).items()
             if k not in ("pack_force", "mesh solves")}
     print(f"[{label}] {steps} steps; launches {nonzero(launches)}",
           flush=True)
@@ -1968,6 +2052,7 @@ def sharded_path(state, cfg, mesh, steps, expect, label, check):
         require(launches[name] == count,
                 f"{label}: {name} counted {launches[name]}, expected {count}")
     require_packs(launches, label)
+    require_sinks_on_a_mesh(label, cfg.fixed_h is None)
     check(state, warm, out, label)
     _, ref, _, ref_s = time_main_path(state, cfg, steps)
     print(f"[{label}] one device, the same steps: {ref_s * 1e3:.3f} ms/step; "
@@ -2097,6 +2182,7 @@ def slab_path(state, cfg, mesh, expect, label, check):
                     f"{label}: {name} counted {launches[name]}, expected "
                     f"{want}")
     require_packs(launches, label)
+    require_sinks_on_a_mesh(label, cfg.fixed_h is None)
     held_g, out_g = gather_state(held, mesh), gather_state(out, mesh)
     for st, what in ((held_g, "held"), (out_g, "timed")):
         d = st.stats_dict()
@@ -2415,7 +2501,7 @@ def bench_phase(n, rate_none, card):
     expect = {"density_fixed_h": 5 * per_run, "force_fixed_h": 2 * per_run,
               "force_fixed_h_grav": 3 * per_run,
               "pack_force": 5 * per_run, "mesh solves": solves}
-    require(nonzero(launches) == expect,
+    require(nonzero(pair_launches(launches)) == expect,
             f"{label}: launches {nonzero(launches)}, expected {expect}")
     require_packs(launches, label)
     ratio = head["value"] / rate_none
@@ -2627,7 +2713,7 @@ def evidence_phase(dev, card, seg=64):
             launches = launch_counts()
             require(code == 0, f"{label}: exit code {code}")
             expect = evidence_expect(name, steps)
-            require(nonzero(launches) == expect,
+            require(nonzero(pair_launches(launches)) == expect,
                     f"{label}: launches {nonzero(launches)}, expected "
                     f"{expect}")
             led = config5.read_ledger(os.path.join(out, "ledger.csv"))
@@ -2671,7 +2757,7 @@ def sod_phase(dev, card, n=400):
         label = f"Sod n={n} {mode}"
         reset_counts()
         err, wall = sod_evidence.run_case(n, mode, dev)
-        launches = nonzero(launch_counts())
+        launches = nonzero(pair_launches(launch_counts()))
         k = launches.get("density_fixed_h", 0)
         require(k > 0 and launches == {"density_fixed_h": k,
                                        "force_fixed_h": k, "pack_force": k},
@@ -2684,6 +2770,232 @@ def sod_phase(dev, card, n=400):
               f"launches {launches}", flush=True)
         cfg = sod_evidence.case_config(n, mode)
         span_table(sod_ic(n=n, cfg=cfg, device=dev)[0], cfg, 5, label)
+
+
+# ---------------------------------------------------- phase 24: the sink layers
+SINK_REPS = 20         # calls of the layer timed with CUDA events
+SINK_LIVE_MS = 2.0     # the layer's ceiling a step with 128 live slots
+# the fields each call copies or decides, held exactly (every integer and
+# bool field too); the others are sums, held by `hold_exact`
+SINK_EXACT = {"sink_gravity": (),
+              "create_sinks": ("0.",),
+              "accrete": ("0.", "1.alive", "1.radius", "1.acc"),
+              "merge_sinks": ("0.alive", "0.radius", "0.acc")}
+
+
+def sink_calls(p, s, cfg, plain=False):
+    """name -> a call of each sink layer of a config 5 step on (p, s): the
+    public functions, or with `plain` their plain versions."""
+    from summersph_tpu_torch.ops import gravity, sinks
+
+    tail = "_plain" if plain else ""
+    return {
+        "sink_gravity": lambda: getattr(gravity, "sink_gravity" + tail)(p, s),
+        "create_sinks": lambda: getattr(sinks, "create_sinks" + tail)(
+            p, s, cfg),
+        "accrete": lambda: getattr(sinks, "accrete" + tail)(p, s),
+        "merge_sinks": lambda: getattr(sinks, "merge_sinks" + tail)(s, cfg)}
+
+
+def named_fields(out):
+    """(name, tensor) of every tensor of a sink call's result."""
+    got = []
+    for k, x in enumerate(out):
+        if hasattr(x, "__dataclass_fields__"):
+            got += [(f"{k}.{f}", getattr(x, f)) for f in x.__dataclass_fields__
+                    if getattr(x, f) is not None]
+        else:
+            got.append((str(k), x))
+    return got
+
+
+def sink_checks(p, s, cfg, label):
+    """Each sink call's kernels against its plain version on (p, s): the
+    fields of SINK_EXACT and every integer and bool equal, the sums by
+    `hold_exact` against the plain version in float64; two launches equal
+    bit for bit.  Returns {call: the largest |kernel - plain| of its
+    sums}."""
+    import torch
+
+    kernel, plain = sink_calls(p, s, cfg), sink_calls(p, s, cfg, plain=True)
+    exact64 = sink_calls(f64(p), f64(s), cfg, plain=True)
+    errs = {}
+    for name in kernel:
+        a, b = named_fields(kernel[name]()), named_fields(kernel[name]())
+        q, r = named_fields(plain[name]()), named_fields(exact64[name]())
+        torch.cuda.synchronize()
+        require([k for k, _ in a] == [k for k, _ in q],
+                f"{label}: {name} fields {[k for k, _ in a]}")
+        for (k, x), (_, y) in zip(a, b):
+            require(torch.equal(x, y),
+                    f"{label}: {name} {k}: two launches differ")
+        same, errs[name] = [], 0.0
+        for (k, x), (_, y), (_, z) in zip(a, q, r):
+            if not x.is_floating_point() or any(
+                    k == e or (e.endswith(".") and k.startswith(e))
+                    for e in SINK_EXACT[name]):
+                require(torch.equal(x, y), f"{label}: {name} {k} differs "
+                        f"from the plain version")
+                same.append(k)
+            else:
+                errs[name] = max(errs[name], hold_exact(
+                    f"{name} {k}", [x], [y], [z], label))
+        print(f"[{label}] {name}: equal to the plain version {same}; two "
+              f"launches bit for bit", flush=True)
+    return errs
+
+
+def sink_kernel_ms(p, s, cfg):
+    """Device ms of each sink kernel a call of the layer, from the
+    profiler's kernel events over SINK_REPS calls (None where it saw no
+    device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    layer = sink_calls(p, s, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SINK_REPS):
+            for call in layer.values():
+                call()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(SINK_KERNELS, 0.0)
+    for e in prof.events():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        for name in SINK_KERNELS:
+            if f"{name}_kernel<" in e.name:
+                us[name] += e.time_range.end - e.time_range.start
+    return {k: (v * 1e-3 / SINK_REPS if v else None) for k, v in us.items()}
+
+
+# the call each sink kernel belongs to, and the JAX package's function
+# whose masked [S, N] (or [S, S]) array operations it replaces
+SINK_OF = {"sink_gravity_pass": "sink_gravity",
+           "sink_gravity_reduce": "sink_gravity",
+           "create_sinks_pass": "create_sinks",
+           "create_sinks_pick": "create_sinks",
+           "accrete_pass": "accrete", "accrete_reduce": "accrete",
+           "merge_sinks": "merge_sinks"}
+SINK_REPLACES = {"sink_gravity": "summersph_tpu/ops/gravity.py sink_gravity",
+                 "create_sinks": "summersph_tpu/ops/sinks.py create_sinks",
+                 "accrete": "summersph_tpu/ops/sinks.py accrete",
+                 "merge_sinks": "summersph_tpu/ops/sinks.py merge_sinks"}
+
+
+def sink_bound_ms(p, s, cfg):
+    """{kernel: (bound_ms, bound_by)}: the least time of each sink kernel
+    on (p, s), the larger of its bytes (each field it reads once, each it
+    writes once) over 3.35 TB/s and its FP32 operations over 67 TFLOP/s.
+    Operations on the pairs each kernel evaluates: sink_gravity_pass ~25
+    on every row and live slot; accrete_pass ~10 on every live row and
+    live, massive slot; create_sinks_pass the code density (5) on every
+    live row and the near-sink test (~10) on the rows above the threshold
+    and the live, massive slots, whose positions alone it reads; merging
+    ~10 on the pairs of live, massive slots.  The one-block kernels'
+    bytes are the partials they sum and the slots they read and write."""
+    import torch
+    from summersph_tpu_torch.ops import cuda_sinks
+
+    n, S, b = p.capacity, s.capacity, p.pos.element_size()
+    live = int(s.alive.sum())
+    real = int((s.alive & (s.mass > 0.0)).sum())
+    rows = int(p.alive.sum())
+    code = torch.where(p.alive, p.mass * (cfg.eta / p.h) ** 3, 0.0)
+    above = int((p.alive & (code > cfg.sink_create_density)).sum())
+    nb_grav = cuda_sinks.blocks(n, cuda_sinks.GRAV_TILE)
+    nb_acc = cuda_sinks.blocks(n, cuda_sinks.BLOCK)
+    nb_create = cuda_sinks.blocks(n, cuda_sinks.BLOCK,
+                                  cuda_sinks.CREATE_MAX_BLOCKS)
+    work = {   # (bytes, FP32 operations)
+        "sink_gravity_pass": (n * (3 * b + b + 1 + 3 * b), n * live * 25),
+        "sink_gravity_reduce": (nb_grav * live * 3 * b + S * (4 * b + 1)
+                                + S * 3 * b, 0),
+        "create_sinks_pass": (n * (b + b + 1) + above * 3 * b
+                              + nb_create * (b + 4),
+                              rows * 5 + above * real * 10),
+        "create_sinks_pick": (nb_create * (b + 4) + 2 * S * (14 * b + 1), 0),
+        "accrete_pass": (2 * n * (3 * b + 3 * b + b + 1)
+                         + nb_acc * real * 10 * b, rows * real * 10),
+        "accrete_reduce": (nb_acc * real * 10 * b + S * (11 * b + 1)
+                           + S * 10 * b, 0),
+        "merge_sinks": (2 * S * (11 * b + 1), real * real * 10)}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+SINK_LIVE = " (128 live)"   # the name suffix of phase 24's all-live rows
+
+
+def sink_phase(n, dev):
+    """Phase 24: the sink layers at N = n on config 5's ICs, with its own
+    slots and with all 128 live and massive.  Returns {kernel: (err, ms,
+    plain_ms, bound_ms, bound_by)}, the all-live rows under names ending
+    in SINK_LIVE; plain_ms, the plain version of the kernel's call, on
+    its particle pass (on merge_sinks, its one kernel), None on the
+    others."""
+    import torch
+
+    state, cfg = config5(n, dev)
+    p, s0 = state.particles, state.sinks
+    S = s0.capacity
+    gen = torch.Generator(device="cpu").manual_seed(24)
+    rows = torch.nonzero(p.alive)[:, 0].cpu()
+    rows = rows[torch.randperm(rows.numel(), generator=gen)[:S]].to(dev)
+    s_live = s0.replace(
+        pos=p.pos[rows].clone(), vel=p.vel[rows].clone(),
+        mass=torch.full_like(s0.mass, 1.0e-3), radius=2.0 * p.h[rows],
+        alive=torch.ones_like(s0.alive))
+    code = torch.where(p.alive, p.mass * (cfg.eta / p.h) ** 3, 0.0)
+    cfg_live = cfg.with_(sink_create_density=float(
+        torch.quantile(code[p.alive].double().cpu(), 0.999)))
+    layer_ms, results = {}, {}
+    for what, s, c, suffix in (("config 5's slots", s0, cfg, ""),
+                               (f"{S} slots live", s_live, cfg_live,
+                                SINK_LIVE)):
+        label = f"N={n} sinks, {what}"
+        live = int(s.alive.sum())
+        errs = sink_checks(p, s, c, label)
+        kernel = sink_calls(p, s, c)
+        plain = sink_calls(p, s, c, plain=True)
+        reset_counts()
+        for call in kernel.values():
+            call()
+        torch.cuda.synchronize()
+        launched = sink_launches()
+        ms = cuda_ms(lambda: [call() for call in kernel.values()],
+                     SINK_REPS)
+        plain_each = {name: cuda_ms(call, 2) for name, call in plain.items()}
+        plain_ms = sum(plain_each.values())
+        each = sink_kernel_ms(p, s, c)
+        bound = sink_bound_ms(p, s, c)
+        layer_ms[what] = ms
+        print(f"[{label}] {live} of {S} slots live: layer {ms:.4f} ms a "
+              f"step, plain {plain_ms:.3f} ms ({plain_ms / ms:.1f}x; "
+              f"{ {k: round(v, 4) for k, v in plain_each.items()} }); "
+              f"{sum(launched.values())} launches a step {launched}",
+              flush=True)
+        for name in SINK_KERNELS:
+            got, (b_ms, b_by) = each[name], bound[name]
+            print(f"[{label}] {name}: "
+                  + (f"{got:.4f} ms" if got is not None else "not measured")
+                  + f", bound {b_ms:.6f} ms ({b_by})"
+                  + (f", {100.0 * b_ms / got:.2f}% of it" if got else ""),
+                  flush=True)
+            call = SINK_OF[name]
+            first = name.endswith("_pass") or name == "merge_sinks"
+            results[name + suffix] = (errs[call], got,
+                                      plain_each[call] if first else None,
+                                      b_ms, b_by)
+    require(layer_ms[f"{S} slots live"] < SINK_LIVE_MS,
+            f"the sink layer with {S} live slots took "
+            f"{layer_ms[f'{S} slots live']:.3f} ms a step, over "
+            f"{SINK_LIVE_MS} ms")
+    return results
 
 
 def main():
@@ -2719,12 +3031,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- phase 2: build the kernels from csrc/ (one source, one nvcc)
-    lib = build.build("sph_pairs")
-    print(f"built {lib.name}", flush=True)
-    for line in build.build_log("sph_pairs").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    # -- phase 2: build the kernels from csrc/ (one nvcc a source)
+    for source in ("sph_pairs", "sinks"):
+        lib = build.build(source)
+        print(f"built {lib.name}", flush=True)
+        for line in build.build_log(source).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("  ptxas:", line.strip())
     dev = torch.device("cuda", 0)
     phase_done("card + build")
 
@@ -2766,6 +3079,10 @@ def main():
         require(none_launches[name] == 1 + 2 * STEPS,
                 f"{name} launched {none_launches[name]} times, expected "
                 f"{1 + 2 * STEPS}")
+    for name, count in sink_expect(cfg, 2 * STEPS).items():
+        require(none_launches[name] == count,
+                f"{label}: {name} counted {none_launches[name]}, expected "
+                f"{count}")
     require_packs(none_launches, label)
     check_run(state, warm, out, label)
     span_table(out, cfg, 5, label)
@@ -2979,7 +3296,7 @@ def main():
               "force_var_h": primes + steps, "grav_short": primes + steps,
               "pack_force": primes + steps,
               "mesh solves": primes + 6 * len(range(0, 16, 4))}
-    require(nonzero(c5_seg) == expect,
+    require(nonzero(pair_launches(c5_seg)) == expect,
             f"config 5 segments: launches {nonzero(c5_seg)}, expected "
             f"{expect}")
     phase_done("22b (N=1048576, config 5 segments)")
@@ -2989,6 +3306,10 @@ def main():
     phase_done("23a (ring, disc100, varh: tools.evidence)")
     sod_phase(dev, card)
     phase_done("23b (Sod: tools.sod_evidence)")
+
+    # -- phase 24: the sink layers
+    sink_results = sink_phase(n, dev)
+    phase_done("24 (N=1048576, the sink layers)")
 
     # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],
@@ -3018,13 +3339,21 @@ def main():
             ("force_var_h_rows" + KEY_ROWS, c5_key_launches)):
         launches[name] = counted[name]
         require(counted[name] > 0, f"{name} was never launched on its path")
+    from summersph_tpu_torch.ops import cuda_sinks
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": cuda_pairs.SOURCE,
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": results[name][0], "ms": results[name][1],
          "plain_ms": results[name][2], "bound_ms": results[name][3],
          "bound_by": results[name][4], "library_ms": None}
-        for name, (replaces, _) in KERNELS.items()]}), flush=True)
+        for name, (replaces, _) in KERNELS.items()] + [
+        {"name": name, "route": "cuda", "source": cuda_sinks.SOURCE,
+         "replaces": SINK_REPLACES[SINK_OF[name.replace(SINK_LIVE, "")]],
+         "launches": c5_launches[name.replace(SINK_LIVE, "")],
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        for name, (err, ms, plain_ms, bound_ms, bound_by)
+        in sink_results.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,8 @@ from ..state import Particles, Sinks
 from ..tracing import traced
 from ..parallel.comm import psum
 from ..utils.units import G
+from . import cuda_sinks
+from .cuda_pairs import _on_cpu
 from .kernels import grav_softening
 
 # Pair elements per row block of `gas_gravity_direct`, which bounds its
@@ -52,14 +54,13 @@ def gas_gravity_direct(rows: Particles, cfg: SimConfig,
     return torch.where(rows.alive[:, None], acc, 0.0)
 
 
-@traced("sink_gravity")
-def sink_gravity(p: Particles, s: Sinks, axis_name=None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(acc_gas [N, 3], acc_sink [S, 3]); masked pairs and coincident
-    points contribute zero.  [S, N] per-component layout, no [N, S, 3]
-    intermediate.  With `axis_name` `p` is a rank's rows, and the gas's
-    pull on the sinks is summed over the ranks (the sink<->sink part is
-    replicated and is not)."""
+def sink_gravity_plain(p: Particles, s: Sinks, axis_name=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `sink_gravity`.  (acc_gas [N, 3], acc_sink
+    [S, 3]); masked pairs and coincident points contribute zero.  [S, N]
+    per-component layout, no [N, S, 3] intermediate.  With `axis_name` `p`
+    is a rank's rows, and the gas's pull on the sinks is summed over the
+    ranks (the sink<->sink part is replicated and is not)."""
     dxc = [s.pos[:, c][:, None] - p.pos[:, c][None, :] for c in range(3)]
     r2 = dxc[0] * dxc[0] + dxc[1] * dxc[1] + dxc[2] * dxc[2]
     valid = p.alive[None, :] & s.alive[:, None] & (r2 > 0.0)
@@ -86,4 +87,17 @@ def sink_gravity(p: Particles, s: Sinks, axis_name=None
             torch.where(s.alive[:, None], acc_sink + acc_ss, 0.0))
 
 
-__all__ = ["gas_gravity_direct", "sink_gravity"]
+@traced("sink_gravity")
+def sink_gravity(p: Particles, s: Sinks, axis_name=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Direct, unsoftened sink gravity: (acc_gas [N, 3], acc_sink [S, 3])
+    of `sink_gravity_plain`.  CPU tensors take it; CUDA tensors the
+    kernels (`ops/cuda_sinks.py`: one pass over the particles, one block
+    for the sinks)."""
+    cuda_sinks.count_live(s)
+    if _on_cpu(p.pos):
+        return sink_gravity_plain(p, s, axis_name)
+    return cuda_sinks.sink_gravity_cuda(p, s, axis_name)
+
+
+__all__ = ["gas_gravity_direct", "sink_gravity", "sink_gravity_plain"]

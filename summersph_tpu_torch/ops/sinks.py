@@ -10,12 +10,16 @@ corrections of the reference, all kept here:
   sinks closer than `sink_merge_factor` x the smaller radius merge,
   conserving mass, momentum and angular momentum.
 
-Every function is a masked tensor op over the fixed capacities, with no
-device read: [S, N] for the gas, [S, S] for the sinks.  On several devices
-(`axis_name`, a `parallel.Mesh`) the gas is a rank's rows and the sinks
-are replicated: accretion sums its per-sink sums over the ranks, creation
-takes the densest candidate of all ranks, and merging, which reads the
-sinks only, needs no collective.
+Each function dispatches by device: on the CPU its plain version
+(`accrete_plain`, `create_sinks_plain`, `merge_sinks_plain`), a masked
+tensor op over the fixed capacities with no device read ([S, N] for the
+gas, [S, S] for the sinks); on the card the kernels of
+`ops/cuda_sinks.py`, one pass over the particles and one block for the
+sinks, with no [S, N] temporary and no device read.  `cull_bounds` has
+one form.  On several devices (`axis_name`, a `parallel.Mesh`) the gas
+is a rank's rows and the sinks are replicated: accretion sums its
+per-sink sums over the ranks, creation takes the densest candidate of all
+ranks, and merging, which reads the sinks only, needs no collective.
 """
 
 from __future__ import annotations
@@ -28,12 +32,14 @@ from ..config import SimConfig
 from ..parallel.comm import all_gather_tiled, psum
 from ..state import PARK_POSITION, Particles, Sinks
 from ..tracing import traced
+from . import cuda_sinks
+from .cuda_pairs import _on_cpu
 
 
-@traced("accrete")
-def accrete(p: Particles, s: Sinks,
-            axis_name=None) -> Tuple[Particles, Sinks]:
-    """Sinks absorb the live gas inside their accretion radius.
+def accrete_plain(p: Particles, s: Sinks,
+                  axis_name=None) -> Tuple[Particles, Sinks]:
+    """Plain PyTorch version of `accrete`: sinks absorb the live gas inside
+    their accretion radius.
 
     Conserves mass, momentum and angular momentum: each particle goes to
     its nearest eligible sink, the sink moves to the combined centre of
@@ -104,10 +110,10 @@ def accrete(p: Particles, s: Sinks,
     return p, s
 
 
-@traced("create_sinks")
-def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
-                 axis_name=None) -> Tuple[Sinks, torch.Tensor]:
-    """Spawn a sink at the densest eligible particle, if any.
+def create_sinks_plain(p: Particles, s: Sinks, cfg: SimConfig,
+                       axis_name=None) -> Tuple[Sinks, torch.Tensor]:
+    """Plain PyTorch version of `create_sinks`: spawn a sink at the
+    densest eligible particle, if any.
 
     Eligible: live, code density m (eta / h)^3 above
     `cfg.sink_create_density`, and not within radius_j + 2 h_i of a real
@@ -168,15 +174,19 @@ def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
     return s, (has_any & ~has_slot).to(torch.int32)
 
 
-@traced("merge_sinks")
-def merge_sinks(s: Sinks, cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
-    """Merge real sinks closer than `cfg.sink_merge_factor` x
-    min(radius_i, radius_j).
+def merge_sinks_plain(s: Sinks, cfg: SimConfig
+                      ) -> Tuple[Sinks, torch.Tensor]:
+    """Plain PyTorch version of `merge_sinks`: merge real sinks closer than
+    `cfg.sink_merge_factor` x min(radius_i, radius_j).
 
-    Every sink points at its lowest-index partner (or itself) and
-    S.bit_length() rounds of pointer jumping collapse chains onto their
-    component minimum.  The root takes the combined mass, the centre of
-    mass position and velocity, the largest radius, and the total angular
+    Every sink points at the lower of itself and its lowest-index partner,
+    and S.bit_length() rounds of pointer jumping follow the pointers to a
+    root, a sink that points at itself.  Every local index minimum along a
+    chain is a root, so a chain whose slots do not fall in index order
+    merges in parts, one a root, and the parts merge on a later call only
+    if they are still within reach then (the rule of the JAX package's
+    `merge_sinks`).  A root takes the combined mass, the centre of mass
+    position and velocity, the largest radius, and the total angular
     momentum (spins plus the members' orbital L about the new centre);
     absorbed slots die.  Returns (sinks, n_merged), the absorbed count.
     """
@@ -233,6 +243,38 @@ def merge_sinks(s: Sinks, cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
     return s, torch.sum(absorbed).to(torch.int32)
 
 
+@traced("accrete")
+def accrete(p: Particles, s: Sinks,
+            axis_name=None) -> Tuple[Particles, Sinks]:
+    """(particles, sinks) of `accrete_plain`.  CPU tensors take it; CUDA
+    tensors the kernels (`ops/cuda_sinks.py`)."""
+    cuda_sinks.count_live(s)
+    if _on_cpu(p.pos):
+        return accrete_plain(p, s, axis_name)
+    return cuda_sinks.accrete_cuda(p, s, axis_name)
+
+
+@traced("create_sinks")
+def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
+                 axis_name=None) -> Tuple[Sinks, torch.Tensor]:
+    """(sinks, slots_full) of `create_sinks_plain`.  CPU tensors take it;
+    CUDA tensors the kernels (`ops/cuda_sinks.py`)."""
+    cuda_sinks.count_live(s)
+    if _on_cpu(p.pos):
+        return create_sinks_plain(p, s, cfg, axis_name)
+    return cuda_sinks.create_sinks_cuda(p, s, cfg, axis_name)
+
+
+@traced("merge_sinks")
+def merge_sinks(s: Sinks, cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
+    """(sinks, n_merged) of `merge_sinks_plain`.  CPU tensors take it;
+    CUDA tensors the kernel (`ops/cuda_sinks.py`)."""
+    cuda_sinks.count_live(s)
+    if _on_cpu(s.pos):
+        return merge_sinks_plain(s, cfg)
+    return cuda_sinks.merge_sinks_cuda(s, cfg)
+
+
 @traced("cull")
 def cull_bounds(p: Particles, s: Sinks,
                 cfg: SimConfig) -> Tuple[Particles, Sinks]:
@@ -256,4 +298,5 @@ def cull_bounds(p: Particles, s: Sinks,
     return p, s
 
 
-__all__ = ["accrete", "create_sinks", "merge_sinks", "cull_bounds"]
+__all__ = ["accrete", "create_sinks", "merge_sinks", "cull_bounds",
+           "accrete_plain", "create_sinks_plain", "merge_sinks_plain"]
