@@ -17,6 +17,15 @@ With `cfg.dt_bins > 1` `run_steps` advances by base steps of the
 block-timestep engine instead (`blockstep.py`), on one device only: on a
 mesh it runs the global step, as the JAX package's sharded steps do.
 
+One seam for self-gravity: each engine below asks `ops.gravity`'s
+`far_field_plan` before its sort and `gas_gravity` after its pair passes,
+and none reads cfg.gravity, cfg.pm_every or cfg.grav_fuse_short.  One step
+body for what the global step and the block substep share: `kick` (a 0-d
+or per-row dt, an optional mask), `drift`, and `_finish_step`, the end of
+a step from the h-iteration to dropping the sort's pad rows.
+`check_supported` holds the rules on what the port runs and is called
+once per public entry.
+
 With `cfg.reuse_forces` (the default) the rates of the previous step's
 evaluation feed the first half-kick, so a step evaluates forces once and
 `prime` evaluates them before the first step; False is the reference's
@@ -78,10 +87,9 @@ from .ops.cuda_pairs import density, forces, pair_eval, window_overflow
 from .ops.density import compute_density
 from .ops.eos import eos_update
 from .ops.forces import compute_sph_forces
-from .ops.gravity import gas_gravity_direct, sink_gravity
-from .ops.pm_gravity import (PM_MODES, gas_gravity_pm, gas_gravity_pm_decomp,
-                             gas_gravity_pm_held, pm_geometry,
-                             pm_long_range_held, recompute_far_field)
+from .ops.gravity import (far_field_phase, far_field_plan, gas_gravity,
+                          sink_gravity)
+from .ops.pm_gravity import PM_MODES
 from .ops.sinks import accrete, create_sinks, cull_bounds, merge_sinks
 from .ops.smoothing import update_smoothing
 from .ops.sorted_grid import (LANES, SORTED_MODES, sort_h_pad,
@@ -96,42 +104,18 @@ from .tracing import span, traced
 
 
 def check_supported(cfg: SimConfig, axis_name: Optional[Mesh] = None):
-    """Raise TypeError for an `axis_name` that is not a `parallel.Mesh`
-    (the JAX package's axis names are strings).  Every configuration runs
-    on a mesh; with cfg.dt_bins > 1 it takes global steps there, as the
-    JAX package's sharded steps do (`summersph_tpu/parallel/sharded.py:
-    148-174`)."""
+    """Raise for what the port does not run; every public entry calls it
+    once.  TypeError for an `axis_name` that is not a `parallel.Mesh` (the
+    JAX package's axis names are strings); ValueError for the held far
+    field (cfg.pm_every > 1) off the sorted engine or under the slab
+    decomposition, for the fused short range off the single-device sorted
+    engine, and, with cfg.dt_bins > 1 on one device, for what the
+    block-timestep engine does not run.  On a mesh dt_bins > 1 takes global
+    steps, as the JAX package's sharded steps do
+    (`summersph_tpu/parallel/sharded.py:148-174`)."""
     if axis_name is not None and not isinstance(axis_name, Mesh):
         raise TypeError(f"axis_name must be a parallel.Mesh (make_mesh), "
                         f"not {axis_name!r}")
-
-
-def fused_split(p: Particles, cfg: SimConfig, recompute: bool, r_s_held):
-    """(r_s, r_cut), 0-d tensors, of a fused step: the split the far field
-    will be solved with on `p` (`pm_geometry` reads the live box, whatever
-    the particles' order), or on a held step the held one."""
-    r_s = pm_geometry(p, cfg)[2] if recompute else r_s_held.to(p.pos.dtype)
-    return r_s, cfg.effective_rcut_rs() * r_s
-
-
-@traced("force_eval")
-def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
-               axis_name: Optional[Mesh] = None, pm=None):
-    """Sort -> density -> EOS -> SPH forces -> self-gravity -> sink gravity.
-
-    Returns (particles with rho/P/cs/omega/acc/du/dalpha filled, sinks with
-    acc, aux = (grid, grav_overflow, pm_r_s)).  grav_overflow counts the
-    rows whose short range lost pairs (none on a fused step: its SPH sort
-    cell is at least r_cut); pm_r_s is the split the (possibly held) far
-    field was built with when cfg.pm_every > 1, else None.  `pm` =
-    (pm_phase, r_s_held, held_valid) drives the far-field subcycle (`pm_gravity.recompute_far_field`); None recomputes.
-    The returned particles are in sorted order and may be padded beyond
-    the caller's capacity; `step` and `prime` slice back (the dense engine
-    keeps the caller's order).  With `axis_name` `p` is this rank's rows
-    and the returned particles too: on the sorted engine its slab of the
-    sorted order; under cfg.decomp='slab' its own slab of the global key
-    order, and the aux's grid is a `parallel.decomp.DecompAux`.
-    """
     if cfg.pm_every > 1 and (cfg.neighbor_mode != "sorted"
                              or (axis_name is not None
                                  and cfg.decomp == "slab")):
@@ -145,98 +129,112 @@ def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
             "cfg.grav_fuse_short (short-range gravity fused into the SPH "
             "force kernel) is implemented for the single-device sorted "
             "engine with use_pallas=True")
+    if cfg.dt_bins <= 1 or axis_name is not None:
+        return
+    if cfg.dt_bins > 10:
+        # run time is linear in M = 2^(dt_bins-1), and a particle set never
+        # earns 512 rungs: a dt spread that wide means dt_min or dt_max is
+        # wrong
+        raise ValueError(
+            f"cfg.dt_bins = {cfg.dt_bins} would run "
+            f"{1 << (cfg.dt_bins - 1)} substeps per base step; the "
+            f"supported range is 1-10, and only 1-4 is measured")
+    if cfg.neighbor_mode != "sorted":
+        raise ValueError("cfg.dt_bins > 1 requires the sorted engine")
+    if not cfg.reuse_forces:
+        raise ValueError("cfg.dt_bins > 1 requires reuse_forces (the "
+                         "carried-rate KDK is what the rung structure "
+                         "interleaves)")
+    if cfg.gravity == "direct":
+        raise ValueError("cfg.dt_bins > 1 supports gravity in "
+                         "('none', 'pm', 'bh', 'treepm')")
+    if cfg.decomp == "slab":
+        raise ValueError("cfg.dt_bins > 1 is single-chip (no slab decomp)")
+
+
+def force_eval(p: Particles, s: Sinks, cfg: SimConfig,
+               axis_name: Optional[Mesh] = None, pm=None):
+    """Sort -> density -> EOS -> SPH forces -> self-gravity -> sink gravity.
+
+    Returns (particles with rho/P/cs/omega/acc/du/dalpha filled, sinks with
+    acc, aux = (grid, grav_overflow, pm_r_s)).  grav_overflow counts the
+    rows whose short range lost pairs (none on a fused step: its SPH sort
+    cell is at least r_cut); pm_r_s is the split of the far field the
+    returned rows carry in acc_ext (fresh or held), or None when they
+    carry none.  `pm` = (pm_phase, r_s_held, held_valid) places the
+    evaluation in the far-field subcycle (`ops.gravity.far_field_plan`);
+    None solves.  The returned particles are in sorted order and may be
+    padded beyond the caller's capacity; `step` and `prime` slice back
+    (the dense engine keeps the caller's order).  With `axis_name` `p` is
+    this rank's rows and the returned particles too: on the sorted engine
+    its slab of the sorted order; under cfg.decomp='slab' its own slab of
+    the global key order, and the aux's grid is a
+    `parallel.decomp.DecompAux`.
+    """
     check_supported(cfg, axis_name)
+    return _force_eval(p, s, cfg, axis_name, pm)
+
+
+@traced("force_eval")
+def _force_eval(p: Particles, s: Sinks, cfg: SimConfig,
+                axis_name: Optional[Mesh], pm):
+    plan = far_field_plan(p, cfg, pm)
     if cfg.neighbor_mode in SORTED_MODES:
         if axis_name is None:
-            return _force_eval_sorted(p, s, cfg, pm)
+            return _force_eval_sorted(p, s, cfg, plan)
         if cfg.decomp == "slab" and cfg.neighbor_mode == "sorted":
             return _force_eval_sorted_decomp(p, s, cfg, axis_name)
-        return _force_eval_sorted_sharded(p, s, cfg, axis_name, pm)
-    return _force_eval_dense(p, s, cfg, axis_name)
+        return _force_eval_sorted_sharded(p, s, cfg, axis_name, plan)
+    return _force_eval_dense(p, s, cfg, axis_name, plan)
+
+
+def _with_sinks(rows: Particles, s: Sinks, g, du, dalpha,
+                axis_name: Optional[Mesh] = None):
+    """The end of every engine's evaluation: sink gravity, the rates on
+    the rows and the held far field they carry (`gas_gravity`'s `held`).
+    Returns (rows, sinks, pm_r_s)."""
+    acc_gas_sink, acc_sink = sink_gravity(rows, s, axis_name)
+    rows = rows.replace(acc=g.acc + acc_gas_sink, du=du, dalpha=dalpha)
+    s = s.replace(acc=acc_sink)
+    if g.held is None:
+        return rows, s, None
+    return rows.replace(acc_ext=g.held[0]), s, g.held[1]
 
 
 def _force_eval_dense(p: Particles, s: Sinks, cfg: SimConfig,
-                      axis_name: Optional[Mesh]):
+                      axis_name: Optional[Mesh], plan):
     """force_eval on the dense engine: every pair, in the caller's order.
     With `axis_name` the rows are this rank's and the columns the
-    gathered set, gathered again after the density pass for its fields."""
+    gathered set, gathered again after the density pass for its fields
+    (the ranks' rows in rank order)."""
     cols = gather_particles(p, axis_name) if axis_name is not None else None
     p = eos_update(compute_density(p, cfg, cols=cols), cfg)
     cols = gather_particles(p, axis_name) if axis_name is not None else None
     acc, du, dalpha = compute_sph_forces(p, cfg, cols=cols)
-
-    grav_over = torch.zeros((), dtype=torch.int32, device=p.pos.device)
-    if cfg.gravity == "direct":
-        acc = acc + gas_gravity_direct(p, cfg, cols=cols)
-    elif cfg.gravity in PM_MODES:
-        if axis_name is None:
-            acc_pm, grav_over = gas_gravity_pm(p, cfg)
-        else:
-            # the gathered columns are the ranks' rows in rank order
-            off = axis_index(axis_name) * p.capacity
-            acc_pm, grav_over = gas_gravity_pm(cols, cfg, rows=(p, off),
-                                               axis_name=axis_name)
-        acc = acc + acc_pm
-    acc_gas_sink, acc_sink = sink_gravity(p, s, axis_name)
-    p = p.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
-    return p, s.replace(acc=acc_sink), (None, grav_over, None)
+    if axis_name is None:
+        g = gas_gravity(p, cfg, plan, acc)
+    else:
+        g = gas_gravity(cols, cfg, plan, acc, axis_name=axis_name,
+                        rows=(p, axis_index(axis_name) * p.capacity))
+    p, s, pm_r_s = _with_sinks(p, s, g, du, dalpha, axis_name)
+    return p, s, (None, g.over, pm_r_s)
 
 
-def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, pm=None):
-    """force_eval on the sorted window engine.  Self-gravity takes one of
-    four branches: direct; TreePM with the short range fused into the
-    force kernel; TreePM with the separate short-range kernel; either
-    TreePM form with the far field held between solves (cfg.pm_every).
-    With variable h the sort carries cell headroom (`sort_h_pad`:
-    cfg.sort_h_pad, or 1.25 under 'grid'), so the same grid stays exact
-    through the step's h-iteration."""
-    pm_grav = cfg.gravity in PM_MODES
-    fuse = cfg.grav_fuse_short and pm_grav
-    phase = r_s_held = None
-    held_valid = False
-    if pm_grav and cfg.pm_every > 1 and pm is not None:
-        phase, r_s_held, held_valid = pm
-
-    # The fused force kernel needs the split before the sort and the
-    # long-range solve: its short range rides the SPH windows, which hold
-    # every pair within r_cut once the sort cell is at least r_cut.
-    grav_split = None
-    if fuse:
-        grav_split = fused_split(p, cfg, recompute_far_field(
-            phase, r_s_held, held_valid), r_s_held)
-    p2, sgrid = sort_particles(p, cfg, h_pad=sort_h_pad(cfg), min_cell=(
-        None if grav_split is None else grav_split[1]))
-
-    out = pair_eval(p2, cfg, sgrid, grav_split)
-    p2, acc, du, dalpha = out[:4]
-
-    grav_over = torch.zeros((), dtype=torch.int32, device=p2.pos.device)
-    pm_r_s = None
-    if cfg.gravity == "direct":
-        acc = acc + gas_gravity_direct(p2, cfg)
-    elif fuse:
-        acc_long, r_s_out = pm_long_range_held(p2, cfg, phase, r_s_held,
-                                               held_valid)
-        if cfg.pm_every > 1:
-            p2 = p2.replace(acc_ext=acc_long)
-            pm_r_s = r_s_out
-        acc = acc + acc_long + out[4]
-    elif pm_grav:
-        if cfg.pm_every > 1:
-            acc_pm, grav_over, acc_long, pm_r_s = gas_gravity_pm_held(
-                p2, cfg, phase, r_s_held, held_valid)
-            p2 = p2.replace(acc_ext=acc_long)
-        else:
-            acc_pm, grav_over = gas_gravity_pm(p2, cfg)
-        acc = acc + acc_pm
-
-    acc_gas_sink, acc_sink = sink_gravity(p2, s)
-    p2 = p2.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
-    return p2, s.replace(acc=acc_sink), (sgrid, grav_over, pm_r_s)
+def _force_eval_sorted(p: Particles, s: Sinks, cfg: SimConfig, plan):
+    """force_eval on the sorted window engine.  With variable h the sort
+    carries cell headroom (`sort_h_pad`: cfg.sort_h_pad, or 1.25 under
+    'grid'), so the same grid stays exact through the step's h-iteration;
+    a fused evaluation's cell is at least r_cut (`plan.min_cell`)."""
+    p2, sgrid = sort_particles(p, cfg, h_pad=sort_h_pad(cfg),
+                               min_cell=plan.min_cell)
+    p2, acc, du, dalpha, *fused = pair_eval(p2, cfg, sgrid, plan.split)
+    g = gas_gravity(p2, cfg, plan, acc, *fused)
+    p2, s, pm_r_s = _with_sinks(p2, s, g, du, dalpha)
+    return p2, s, (sgrid, g.over, pm_r_s)
 
 
 def _force_eval_sorted_sharded(p: Particles, s: Sinks, cfg: SimConfig,
-                               mesh: Mesh, pm=None):
+                               mesh: Mesh, plan):
     """The sorted engine on several ranks (gather mode).  Every rank
     gathers the particles, sorts the whole set with the same stable sort,
     and owns the contiguous slab of the sorted rows at rank x capacity:
@@ -263,26 +261,9 @@ def _force_eval_sorted_sharded(p: Particles, s: Sinks, cfg: SimConfig,
         [rows.rho, rows.pressure, rows.cs, rows.omega], mesh)
     pf2 = pf2.replace(rho=rho, pressure=pres, cs=cs, omega=omega)
     acc, du, dalpha = forces(pf2, cfg, grid, rows=(rows, off))
-
-    grav_over = torch.zeros((), dtype=torch.int32, device=p.pos.device)
-    pm_r_s = None
-    if cfg.gravity == "direct":
-        acc = acc + gas_gravity_direct(rows, cfg, cols=pf2)
-    elif cfg.gravity in PM_MODES:
-        if cfg.pm_every > 1:
-            phase, r_s_held, held_valid = pm or (None, None, False)
-            acc_pm, grav_over, acc_long, pm_r_s = gas_gravity_pm_held(
-                pf2, cfg, phase, r_s_held, held_valid, rows=(rows, off),
-                axis_name=mesh)
-            rows = rows.replace(acc_ext=acc_long)
-        else:
-            acc_pm, grav_over = gas_gravity_pm(pf2, cfg, rows=(rows, off),
-                                               axis_name=mesh)
-        acc = acc + acc_pm
-
-    acc_gas_sink, acc_sink = sink_gravity(rows, s, mesh)
-    rows = rows.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
-    return rows, s.replace(acc=acc_sink), (grid, grav_over, pm_r_s)
+    g = gas_gravity(pf2, cfg, plan, acc, rows=(rows, off), axis_name=mesh)
+    rows, s, pm_r_s = _with_sinks(rows, s, g, du, dalpha, mesh)
+    return rows, s, (grid, g.over, pm_r_s)
 
 
 def _force_eval_sorted_decomp(p: Particles, s: Sinks, cfg: SimConfig,
@@ -295,9 +276,10 @@ def _force_eval_sorted_decomp(p: Particles, s: Sinks, cfg: SimConfig,
     (the `key_rows` form of the `_rows` kernels); between them one more
     rim exchange brings the rims' fresh density fields.  PM gravity
     deposits the slab and solves on the mesh summed over the ranks (the
-    pencil solve where it tiles), and its short range runs on a wider rim
-    (`pm_gravity.gas_gravity_pm_decomp`).  Capacity pressure (migration
-    chunks, slabs, rims) is counted for the decomp_pressure slot."""
+    pencil solve where it tiles) every evaluation, and its short range
+    runs on a wider rim (`pm_gravity.gas_gravity_pm_decomp`).  Capacity
+    pressure (migration chunks, slabs, rims) is counted for the
+    decomp_pressure slot."""
     nloc = p.capacity
     granule = max(cfg.sorted_block, LANES)
     if nloc % granule or cfg.halo_rows % LANES \
@@ -313,49 +295,43 @@ def _force_eval_sorted_decomp(p: Particles, s: Sinks, cfg: SimConfig,
                                 hops=cfg.halo_hops)
     p_cols, grid, rim_short = build_cols(key_own, p2, rim_l, rim_r, cfg,
                                          origin, cell, h_pad)
-    pressure = n_mis + n_slab + rim_short
 
     p2 = eos_update(density(p_cols, cfg, grid, rows=(p2, key_own)), cfg)
     p_cols = attach_density(key_own, p2, p_cols, mesh, cfg)
     acc, du, dalpha = forces(p_cols, cfg, grid, rows=(p2, key_own))
-
-    grav_over = torch.zeros((), dtype=torch.int32, device=p.pos.device)
-    if cfg.gravity == "direct":
-        acc = acc + gas_gravity_direct(p2, cfg,
-                                       cols=gather_particles(p2, mesh))
-    elif cfg.gravity in PM_MODES:
-        acc_pm, grav_over, rim_short_g = gas_gravity_pm_decomp(
-            p2, key_own, cell, cfg, mesh)
-        acc = acc + acc_pm
-        pressure = pressure + rim_short_g
-
-    acc_gas_sink, acc_sink = sink_gravity(p2, s, mesh)
-    p2 = p2.replace(acc=acc + acc_gas_sink, du=du, dalpha=dalpha)
+    g = gas_gravity(p2, cfg, None, acc, axis_name=mesh,
+                    decomp=(key_own, cell))
+    p2, s, _ = _with_sinks(p2, s, g, du, dalpha, mesh)
+    pressure = n_mis + n_slab + rim_short + g.rim_short
     aux = DecompAux(grid=grid, cols=p_cols, key_rows=key_own,
                     pressure=pressure.to(torch.int32))
-    return p2, s.replace(acc=acc_sink), (aux, grav_over, None)
+    return p2, s, (aux, g.over, None)
 
 
 @traced("kick")
-def kick(p: Particles, s: Sinks, dt):
-    """Half-kick: v += a dt/2, u += du dt/2, alpha += dalpha dt/2, with
-    the Kahan-compensated u update when the carry `u_c` is present."""
-    am = p.alive[:, None]
-    al = p.alive
+def kick(p: Particles, s: Sinks, dt, mask=None, dt_sink=None):
+    """Half-kick: v += a dt/2, u += du dt/2, alpha += dalpha dt/2 on the
+    live rows, with the Kahan-compensated u update when the carry `u_c` is
+    present; the sinks by dt_sink/2 (dt by default).  `dt` is 0-d, or [N]
+    per row with `mask` [N] bool naming the rows to kick (a block substep's
+    opening or closing rungs)."""
+    m = p.alive if mask is None else mask & p.alive
+    dt_v = dt[:, None] if dt.dim() else dt
     if p.u_c is None:
-        u = torch.where(al, p.u + 0.5 * dt * p.du, p.u)
+        u = torch.where(m, p.u + 0.5 * dt * p.du, p.u)
         u_c = None
     else:
         y = 0.5 * dt * p.du - p.u_c
         t = p.u + y
-        u_c = torch.where(al, (t - p.u) - y, p.u_c)
-        u = torch.where(al, t, p.u)
+        u_c = torch.where(m, (t - p.u) - y, p.u_c)
+        u = torch.where(m, t, p.u)
     p = p.replace(
-        vel=torch.where(am, p.vel + 0.5 * dt * p.acc, p.vel),
+        vel=torch.where(m[:, None], p.vel + 0.5 * dt_v * p.acc, p.vel),
         u=u, u_c=u_c,
-        alpha=torch.where(al, p.alpha + 0.5 * dt * p.dalpha, p.alpha))
+        alpha=torch.where(m, p.alpha + 0.5 * dt * p.dalpha, p.alpha))
+    dt_s = dt if dt_sink is None else dt_sink
     s = s.replace(vel=torch.where(s.alive[:, None],
-                                  s.vel + 0.5 * dt * s.acc, s.vel))
+                                  s.vel + 0.5 * dt_s * s.acc, s.vel))
     return p, s
 
 
@@ -395,62 +371,34 @@ def _count_nonfinite(p: Particles) -> torch.Tensor:
     return torch.sum(p.alive & ~ok).to(torch.int32)
 
 
-def step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh] = None,
-         pm_phase: Optional[int] = None) -> SimState:
-    """One full KDK step.  With `cfg.reuse_forces` it needs primed rates
-    (see `prime`).  `pm_phase` (cfg.pm_every > 1): this step's host-side
-    position in the far-field subcycle -- None or 0 solves the mesh,
-    nonzero reuses the held force, after one device read of the held
-    split (`run_steps` knows the held force is valid and skips it).  With
-    `axis_name` (a `parallel.Mesh`) the step of this rank's rows."""
-    return _step(state, cfg, axis_name, pm_phase, held_valid=False)
-
-
-@traced("step")
-def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
-          pm_phase: Optional[int], held_valid: bool) -> SimState:
-    check_supported(cfg, axis_name)
-    p, s, dt = state.particles, state.sinks, state.dt
-    cap0 = p.capacity
-    pm = None
-    if cfg.pm_every > 1 and pm_phase is not None \
-            and state.pm_r_s is not None:
-        pm = (pm_phase, state.pm_r_s, held_valid)
-
-    if cfg.reuse_forces:
-        p, s = kick(p, s, dt)
-        p, s = drift(p, s, dt)
-        p, s, (grid, grav_over, pm_r_s) = force_eval(p, s, cfg, axis_name,
-                                                     pm=pm)
-        p, s = kick(p, s, dt)
-    else:
-        p, s, _ = force_eval(p, s, cfg, axis_name, pm=pm)
-        p, s = kick(p, s, dt)
-        p, s = drift(p, s, dt)
-        p, s, (grid, grav_over, pm_r_s) = force_eval(p, s, cfg, axis_name,
-                                                     pm=pm)
-        p, s = kick(p, s, dt)
-
-    with span("timestep"):
-        t = state.t + dt
-        dt = next_timestep(p, dt, cfg, axis_name)
-
-    # the slab decomposition hands its local columns and grid on
+def _finish_step(p: Particles, s: Sinks, cfg: SimConfig, cap0: int, grid,
+                 grav_over, axis_name: Optional[Mesh] = None, active=None,
+                 act=None):
+    """The end of a global step and of a block substep: with variable h
+    the h-iteration on the evaluation's `grid` and sink creation, then
+    accretion, sink merging, the bounds cull, the health counters, and
+    dropping the sort's pad rows beyond `cap0`.  Under the slab
+    decomposition `grid` is the `DecompAux`, whose local columns the
+    h-iteration sums against.  On a block substep `active` = (worklist,
+    count) and `act` [N] bool name the closing rows: the h-iteration runs
+    on them, and only their h moves (rho/P/cs/omega keep the
+    stale-consistent merge).  Returns (particles, sinks, int32 stats)."""
     aux = grid if isinstance(grid, DecompAux) else None
     if aux is not None:
         grid = aux.grid
-
     n_unconverged = sink_full = None
     if cfg.fixed_h is None:
         if aux is not None:
-            p, n_unconverged = update_smoothing(
-                p, cfg, cols=aux.cols, grid=grid, axis_name=axis_name,
-                key_rows=aux.key_rows)
+            cols, key_rows = aux.cols, aux.key_rows
         else:
             cols = (gather_particles(p, axis_name) if axis_name is not None
                     else None)
-            p, n_unconverged = update_smoothing(p, cfg, cols=cols, grid=grid,
-                                                axis_name=axis_name)
+            key_rows = None
+        p_h, n_unconverged = update_smoothing(
+            p, cfg, cols=cols, grid=grid, axis_name=axis_name,
+            key_rows=key_rows, active=active, act_mask=act)
+        p = p_h if act is None else p.replace(h=torch.where(act, p_h.h,
+                                                            p.h))
         s, sink_full = create_sinks(p, s, cfg, axis_name)
 
     p, s = accrete(p, s, axis_name)
@@ -479,8 +427,49 @@ def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
                                stats[5:]])
     if p.capacity != cap0:  # drop the sort's dead pad slots
         p = p.map(lambda a: a[:cap0])
+    return p, s, stats
+
+
+def step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh] = None,
+         pm_phase: Optional[int] = None) -> SimState:
+    """One full KDK step.  With `cfg.reuse_forces` it needs primed rates
+    (see `prime`).  `pm_phase` (cfg.pm_every > 1): this step's host-side
+    position in the far-field subcycle -- None or 0 solves the mesh,
+    nonzero reuses the held force, after one device read of the held
+    split (`run_steps` knows the held force is valid and skips it).  With
+    `axis_name` (a `parallel.Mesh`) the step of this rank's rows."""
+    check_supported(cfg, axis_name)
+    return _step(state, cfg, axis_name, pm_phase, held_valid=False)
+
+
+@traced("step")
+def _step(state: SimState, cfg: SimConfig, axis_name: Optional[Mesh],
+          pm_phase: Optional[int], held_valid: bool) -> SimState:
+    p, s, dt = state.particles, state.sinks, state.dt
+    cap0 = p.capacity
+    pm = (pm_phase, state.pm_r_s, held_valid)
+
+    if cfg.reuse_forces:
+        p, s = kick(p, s, dt)
+        p, s = drift(p, s, dt)
+        p, s, (grid, grav_over, pm_r_s) = _force_eval(p, s, cfg, axis_name,
+                                                      pm)
+        p, s = kick(p, s, dt)
+    else:
+        p, s, _ = _force_eval(p, s, cfg, axis_name, pm)
+        p, s = kick(p, s, dt)
+        p, s = drift(p, s, dt)
+        p, s, (grid, grav_over, pm_r_s) = _force_eval(p, s, cfg, axis_name,
+                                                      pm)
+        p, s = kick(p, s, dt)
+
+    with span("timestep"):
+        t = state.t + dt
+        dt = next_timestep(p, dt, cfg, axis_name)
+
+    p, s, stats = _finish_step(p, s, cfg, cap0, grid, grav_over, axis_name)
     out = state.replace(particles=p, sinks=s, t=t, dt=dt, stats=stats)
-    if pm_r_s is not None:  # carry the held PM split (cfg.pm_every)
+    if pm_r_s is not None:  # carry the held far field's split
         out = out.replace(pm_r_s=pm_r_s)
     return out
 
@@ -520,9 +509,10 @@ def prime(state: SimState, cfg: SimConfig,
     carried-rate KDK needs before its first step.  The particle order
     comes back permuted (identity in pid).  With `axis_name` (a
     `parallel.Mesh`) `state` holds this rank's rows."""
+    check_supported(cfg, axis_name)
     state = init_carries(state, cfg)
     cap0 = state.particles.capacity
-    p, s, _ = force_eval(state.particles, state.sinks, cfg, axis_name)
+    p, s, _ = _force_eval(state.particles, state.sinks, cfg, axis_name, None)
     if p.capacity != cap0:
         p = p.map(lambda a: a[:cap0])
     return state.replace(particles=p, sinks=s)
@@ -546,12 +536,12 @@ def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
     check_supported(cfg, axis_name)
     state = init_carries(state, cfg)
     state = state.replace(stats=torch.zeros_like(state.stats))
-    every = max(cfg.pm_every, 1)
     for i in range(n_steps):
+        phase = far_field_phase(cfg, i)
         if cfg.dt_bins > 1 and axis_name is None:
-            out = _step_binned(state, cfg, i % every, held_valid=i > 0)
+            out = _step_binned(state, cfg, phase, held_valid=i > 0)
         else:
-            out = _step(state, cfg, axis_name, i % every, held_valid=i > 0)
+            out = _step(state, cfg, axis_name, phase, held_valid=i > 0)
         with span("stats"):
             state = out.replace(stats=torch.maximum(out.stats, state.stats))
     return state

@@ -28,9 +28,7 @@ one block of partials, finishes; creation writes the rank's candidate row
 (`all_gather_tiled`), from which a second launch picks the first densest.
 
 The kernels take float32 or float64, a bool `alive` and at most MAX_SLOTS
-sink slots, the slots they stage in shared memory.  While a profiler
-records, each public sink function, on either device, adds the live slots
-it saw to the tracing counter `sink_live_slots` (`count_live`).
+sink slots, the slots they stage in shared memory.
 """
 
 from __future__ import annotations
@@ -40,7 +38,6 @@ import functools
 
 import torch
 
-from .. import tracing
 from ..config import SimConfig
 from ..parallel.comm import all_gather_tiled, psum
 from ..state import Particles, Sinks
@@ -86,13 +83,6 @@ def blocks(n: int, tile: int, cap: int = MAX_BLOCKS) -> int:
     order of the partials' sum, and so every bit, is the same on any
     card."""
     return max(1, min(cap, -(-n // tile)))
-
-
-def count_live(s: Sinks) -> None:
-    """Adds the live slots of s to the tracing counter `sink_live_slots`,
-    while a profiler records (a device-side add, no read)."""
-    if tracing.active():
-        tracing.count("sink_live_slots", torch.sum(s.alive))
 
 
 def _prepare(what: str, p: Particles | None, s: Sinks, p_fields, s_fields):
@@ -268,5 +258,5 @@ for _fn, _attr in launch_counters():
     setattr(_fn, _attr, 0)
 
 __all__ = ["sink_gravity_cuda", "create_sinks_cuda", "accrete_cuda",
-           "merge_sinks_cuda", "count_live", "blocks", "launch_counters",
+           "merge_sinks_cuda", "blocks", "launch_counters",
            "MAX_SLOTS", "SOURCE"]

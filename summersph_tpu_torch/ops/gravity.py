@@ -1,4 +1,5 @@
-"""Softened gas-gas gravity (exact all pairs) and direct sink gravity.
+"""Gas self-gravity, the one place that decides which form a force
+evaluation runs, and direct sink gravity.
 
 Counterpart of `summersph_tpu/ops/gravity.py`.  `gas_gravity_direct` is
 the exact oracle the TreePM path (`ops/pm_gravity.py`) is held against,
@@ -7,22 +8,36 @@ within 2h, Newtonian outside, a pure r > 0 guard.  Sink gravity is direct
 and unsoftened.  On several devices (`axis_name`, a `parallel.Mesh`) the
 rows are a rank's, the columns the gathered set, and the gas->sink pull
 is summed over the ranks.
+
+The self-gravity seam is one pair of calls that every engine of
+`integrate.py` and the block substep make: `far_field_plan` before the
+sort (does this evaluation solve the mesh or hold the far field of an
+earlier solve, and with the fused short range the split the force kernel
+and the sort's cell need) and `gas_gravity` after the pair passes
+(direct; TreePM with the fused or the separate short range, solved or
+held; the slab decomposition's TreePM).  No caller reads cfg.gravity,
+cfg.pm_every or cfg.grav_fuse_short: `run_steps` takes each step's host
+phase in the far-field subcycle from `far_field_phase`, and whether the
+far field is kept for later steps follows from the state: rows that
+carry `acc_ext` (attached by `integrate.init_carries`) keep it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import SimConfig
 from ..state import Particles, Sinks
 from ..tracing import traced
-from ..parallel.comm import psum
+from ..parallel.comm import gather_particles, psum
 from ..utils.units import G
 from . import cuda_sinks
 from .cuda_pairs import _on_cpu
 from .kernels import grav_softening
+from .pm_gravity import (PM_MODES, gas_gravity_pm_decomp, pm_geometry,
+                         pm_long_range, pm_short_range, recompute_far_field)
 
 # Pair elements per row block of `gas_gravity_direct`, which bounds its
 # memory (about 10 temporaries of this many elements).
@@ -94,10 +109,106 @@ def sink_gravity(p: Particles, s: Sinks, axis_name=None
     of `sink_gravity_plain`.  CPU tensors take it; CUDA tensors the
     kernels (`ops/cuda_sinks.py`: one pass over the particles, one block
     for the sinks)."""
-    cuda_sinks.count_live(s)
     if _on_cpu(p.pos):
         return sink_gravity_plain(p, s, axis_name)
     return cuda_sinks.sink_gravity_cuda(p, s, axis_name)
 
 
-__all__ = ["gas_gravity_direct", "sink_gravity", "sink_gravity_plain"]
+def far_field_phase(cfg: SimConfig, i: int) -> int:
+    """Step i of a segment's place in the far-field subcycle, a host
+    integer: i % cfg.pm_every, so that a segment's first step solves."""
+    return i % max(cfg.pm_every, 1)
+
+
+class FarField(NamedTuple):
+    """What `far_field_plan` decided before the sort."""
+    solve: bool                         # this evaluation solves the mesh
+    r_s_held: Optional[torch.Tensor]    # the held far field's split
+    split: Optional[tuple]              # fused: (r_s, r_cut) of the kernel
+
+    @property
+    def min_cell(self):
+        """The sort's least cell: r_cut on a fused evaluation, whose short
+        range rides the SPH windows, which hold every pair within r_cut
+        once the cell is at least r_cut."""
+        return None if self.split is None else self.split[1]
+
+
+def far_field_plan(p: Particles, cfg: SimConfig, pm=None) -> FarField:
+    """The self-gravity decisions an evaluation on `p` makes before its
+    sort.  `pm` = (pm_phase, r_s_held, held_valid) places it in the
+    far-field subcycle (`pm_gravity.recompute_far_field`); None solves,
+    and so do rows that carry no held far field (`acc_ext`).  With
+    cfg.grav_fuse_short the split of the fused force kernel: the one the
+    far field will be solved with on `p` (`pm_geometry` reads the live
+    box, whatever the rows' order), or on a held evaluation the held
+    one."""
+    if cfg.gravity not in PM_MODES:
+        return FarField(False, None, None)
+    phase, r_s_held, held_valid = pm or (None, None, False)
+    solve = p.acc_ext is None or recompute_far_field(phase, r_s_held,
+                                                     held_valid)
+    split = None
+    if cfg.grav_fuse_short:
+        r_s = pm_geometry(p, cfg)[2] if solve else r_s_held.to(p.pos.dtype)
+        split = (r_s, cfg.effective_rcut_rs() * r_s)
+    return FarField(solve, r_s_held, split)
+
+
+class SelfGravity(NamedTuple):
+    """What `gas_gravity` returns."""
+    acc: torch.Tensor           # the caller's acc plus gas self-gravity
+    over: torch.Tensor          # int32 rows whose short range lost pairs
+    held: Optional[tuple]       # (acc_long, r_s) the rows carry, or None
+    rim_short: torch.Tensor     # int32 slab rows beyond the gravity rim
+
+
+def gas_gravity(p: Particles, cfg: SimConfig, plan: FarField, acc,
+                fused_acc=None, rows=None, axis_name=None,
+                active_rows=None, decomp=None) -> SelfGravity:
+    """`acc` plus the gas self-gravity of cfg.gravity on the rows: direct
+    (`gas_gravity_direct`), or TreePM, its far field solved or held as
+    `plan` says (`pm_long_range`, or the rows' `acc_ext` at the held
+    split) and its short range fused (`fused_acc`, the force kernel's at
+    `plan.split`) or separate (`pm_short_range` at the far field's split).
+
+    `p` is the set the rows see: the rows themselves, or with `rows` =
+    (p_rows, offset) and `axis_name` the gathered set of which p_rows is
+    this rank's slab (gather mode).  `active_rows` [N] bool gates the
+    separate short range to a block substep's closing rows.  `decomp` =
+    (key_own, cell_sph): `p` is this rank's own slab under the slab
+    decomposition, whose TreePM (`gas_gravity_pm_decomp`) solves every
+    evaluation and counts the rows its rim cut short in `rim_short` (0
+    elsewhere).  `held` is (acc_long, r_s) when the rows carry a held far
+    field, for the caller to keep in acc_ext and SimState.pm_r_s; the
+    overflow count is always 0 (the short range covers every window)."""
+    zero = torch.zeros((), dtype=torch.int32, device=acc.device)
+    p_rows = p if rows is None else rows[0]
+    if cfg.gravity == "direct":
+        cols = p if rows is not None else (
+            gather_particles(p, axis_name) if decomp is not None else None)
+        return SelfGravity(acc + gas_gravity_direct(p_rows, cfg, cols=cols),
+                           zero, None, zero)
+    if cfg.gravity not in PM_MODES:
+        return SelfGravity(acc, zero, None, zero)
+    if decomp is not None:
+        acc_pm, over, rim_short = gas_gravity_pm_decomp(p, *decomp, cfg,
+                                                        axis_name)
+        return SelfGravity(acc + acc_pm, over, None, rim_short)
+    if plan.solve:
+        acc_long, _, _, r_s = pm_long_range(p, cfg, rows, axis_name)
+    else:
+        acc_long, r_s = p_rows.acc_ext, plan.r_s_held.to(p.pos.dtype)
+    held = None if p_rows.acc_ext is None else (acc_long, r_s)
+    if fused_acc is not None:
+        return SelfGravity(acc + acc_long + fused_acc, zero, held, zero)
+    acc_short, over = pm_short_range(p, cfg, r_s, rows, axis_name,
+                                     active_rows)
+    if active_rows is not None:     # the block substep's order of the sum
+        return SelfGravity(acc + acc_long + acc_short, over, held, zero)
+    return SelfGravity(acc + (acc_long + acc_short), over, held, zero)
+
+
+__all__ = ["gas_gravity_direct", "sink_gravity", "sink_gravity_plain",
+           "far_field_phase", "FarField", "far_field_plan", "SelfGravity",
+           "gas_gravity"]

@@ -20,7 +20,10 @@ the method:
   (`ops/cuda_pairs.grav_short_sums`).
 
 The mesh is rebuilt from the particles every solve; r_s and r_cut are 0-d
-tensors, so nothing in a solve waits for the card.
+tensors, so nothing in a solve waits for the card.  Whether an evaluation
+solves or holds the far field of an earlier solve (cfg.pm_every), and
+whether its short range is fused into the force kernel, is decided by the
+seam in `ops/gravity.py` (`far_field_plan`, `gas_gravity`).
 
 On several devices (gather mode: `rows` = (p_rows, offset) and
 `axis_name`, a `parallel.Mesh`) `p` is the replicated full set, which
@@ -568,12 +571,13 @@ def gas_gravity_pm_decomp(p_own: Particles, key_own, cell_sph,
 
 def recompute_far_field(pm_phase: Optional[int], r_s_held,
                         held_valid: bool = False) -> bool:
-    """Whether a step solves the mesh anew (cfg.pm_every).  The phase is a
-    host integer: None (a bare `step`, `prime`) or 0 recomputes; so does a
-    held split r_s_held <= 0 (a state that never solved).  `held_valid`
-    says the caller knows the held force is valid (`run_steps` after its
-    phase-0 step); otherwise a nonzero phase reads r_s_held from the
-    device, the one case that waits for the card."""
+    """Whether a step solves the mesh anew (cfg.pm_every; the seam,
+    `ops.gravity.far_field_plan`, asks).  The phase is a host integer:
+    None (a bare `step`, `prime`) or 0 recomputes; so does a held split
+    r_s_held <= 0 (a state that never solved).  `held_valid` says the
+    caller knows the held force is valid (`run_steps` after its phase-0
+    step); otherwise a nonzero phase reads r_s_held from the device, the
+    one case that waits for the card."""
     if pm_phase is None or pm_phase == 0 or r_s_held is None:
         return True
     if held_valid:
@@ -581,42 +585,7 @@ def recompute_far_field(pm_phase: Optional[int], r_s_held,
     return not bool(r_s_held > 0.0)
 
 
-def pm_long_range_held(p: Particles, cfg: SimConfig, pm_phase, r_s_held,
-                       held_valid: bool = False, rows=None, axis_name=None):
-    """The far-field half of `gas_gravity_pm_held` alone (cfg.grav_fuse_short,
-    whose short-range complement runs inside the force kernel).  Returns
-    (acc_long, r_s): the held p.acc_ext and r_s_held on held steps, a fresh
-    solve otherwise (always when p carries no acc_ext).  With `rows` the
-    held force is p_rows's (see `pm_long_range`)."""
-    p_dep = p if rows is None else rows[0]
-    if p_dep.acc_ext is not None and not recompute_far_field(
-            pm_phase, r_s_held, held_valid):
-        return p_dep.acc_ext, r_s_held.to(p.pos.dtype)
-    acc_long, _, _, r_s = pm_long_range(p, cfg, rows, axis_name)
-    return acc_long, r_s
-
-
-def gas_gravity_pm_held(p: Particles, cfg: SimConfig, pm_phase, r_s_held,
-                        held_valid: bool = False, rows=None, axis_name=None):
-    """PM self-gravity with the long-range force recomputed every
-    cfg.pm_every-th step and held in between (`recompute_far_field`
-    decides on the host); the short-range complement runs every step at
-    the split scale the far field was built with.  Returns (acc,
-    n_window_overflow, acc_long, r_s); the caller stores acc_long in
-    p.acc_ext and r_s in SimState.pm_r_s.  With `rows` and `axis_name`
-    the sharded form (see `pm_long_range`, `pm_short_range`)."""
-    if (p if rows is None else rows[0]).acc_ext is None:
-        raise ValueError(
-            "gas_gravity_pm_held needs particles.acc_ext (call "
-            "integrate.init_carries / prime with cfg.pm_every > 1 first)")
-    acc_long, r_s = pm_long_range_held(p, cfg, pm_phase, r_s_held,
-                                       held_valid, rows, axis_name)
-    acc_short, n_over = pm_short_range(p, cfg, r_s, rows, axis_name)
-    return acc_long + acc_short, n_over, acc_long, r_s
-
-
 __all__ = ["PM_MODES", "green_kernel_k", "grav_tables", "pm_geometry",
            "pm_long_range", "gravity_sort", "pm_short_range",
            "gas_gravity_pm", "gas_gravity_pm_decomp", "poisson_pencil",
-           "pencil_tiles", "recompute_far_field", "pm_long_range_held",
-           "gas_gravity_pm_held", "erf_approx"]
+           "pencil_tiles", "recompute_far_field", "erf_approx"]

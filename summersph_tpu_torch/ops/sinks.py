@@ -248,7 +248,6 @@ def accrete(p: Particles, s: Sinks,
             axis_name=None) -> Tuple[Particles, Sinks]:
     """(particles, sinks) of `accrete_plain`.  CPU tensors take it; CUDA
     tensors the kernels (`ops/cuda_sinks.py`)."""
-    cuda_sinks.count_live(s)
     if _on_cpu(p.pos):
         return accrete_plain(p, s, axis_name)
     return cuda_sinks.accrete_cuda(p, s, axis_name)
@@ -259,7 +258,6 @@ def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
                  axis_name=None) -> Tuple[Sinks, torch.Tensor]:
     """(sinks, slots_full) of `create_sinks_plain`.  CPU tensors take it;
     CUDA tensors the kernels (`ops/cuda_sinks.py`)."""
-    cuda_sinks.count_live(s)
     if _on_cpu(p.pos):
         return create_sinks_plain(p, s, cfg, axis_name)
     return cuda_sinks.create_sinks_cuda(p, s, cfg, axis_name)
@@ -269,7 +267,6 @@ def create_sinks(p: Particles, s: Sinks, cfg: SimConfig,
 def merge_sinks(s: Sinks, cfg: SimConfig) -> Tuple[Sinks, torch.Tensor]:
     """(sinks, n_merged) of `merge_sinks_plain`.  CPU tensors take it;
     CUDA tensors the kernel (`ops/cuda_sinks.py`)."""
-    cuda_sinks.count_live(s)
     if _on_cpu(s.pos):
         return merge_sinks_plain(s, cfg)
     return cuda_sinks.merge_sinks_cuda(s, cfg)

@@ -37,9 +37,7 @@ per sort: `sph_candidates` (window extents x window_group) and `sph_rows`
 (live rows) in `sort_particles`, `grav_candidates` and `grav_rows` in
 `gravity_sort`; ten small device operations a sort (six or seven of them
 kernels, the rest the reductions' memsets), only while a profiler
-records.  `sink_live_slots` sums the live sink slots each of the four
-sink calls saw, one sum a call on either device
-(`ops.cuda_sinks.count_live`).
+records.
 
 The system's other counters stay where they are, read by the tests and
 the benchmark: the kernel launch counts (`ops.cuda_pairs.launch_counters`,

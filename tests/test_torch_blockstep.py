@@ -22,6 +22,7 @@ import torch
 
 from summersph_tpu_torch import blockstep
 from summersph_tpu_torch.config import SimConfig
+from summersph_tpu_torch.integrate import check_supported
 from summersph_tpu_torch.models.disc import disc_ic
 from summersph_tpu_torch.ops import cuda_pairs, pm_gravity, smoothing
 from summersph_tpu_torch.ops.sorted_grid import (group_worklist,
@@ -482,12 +483,17 @@ def test_all_rung0_matches_global_step():
     (dict(neighbor_mode="grid"), "requires the sorted engine"),
     (dict(reuse_forces=False), "requires reuse_forces"),
     (dict(gravity="direct"), "supports gravity in"),
-    (dict(decomp="slab"), "single-chip")])
-def test_binned_config_errors(change, match):
+    (dict(decomp="slab"), "single-chip"),
+    (dict(pm_every=4, neighbor_mode="grid"), "held long-range PM force"),
+    (dict(grav_fuse_short=True, use_pallas=False),
+     "short-range gravity fused"),
+    (dict(grav_fuse_short=True, use_pallas=True, neighbor_mode="dense"),
+     "short-range gravity fused")])
+def test_unsupported_config_errors(change, match):
     cfg = SimConfig(fixed_h=2.0, neighbor_mode="sorted", dt_bins=3)
-    blockstep._check_binned_cfg(cfg)
+    check_supported(cfg)
     with pytest.raises(ValueError, match=match):
-        blockstep._check_binned_cfg(cfg.with_(**change))
+        check_supported(cfg.with_(**change))
     st, _ = disc_ic(n=64, cfg=cfg, device="cpu")
     with pytest.raises(ValueError, match=match):
         blockstep.step_binned(st, cfg.with_(**change))

@@ -37,8 +37,9 @@ from summersph_tpu_torch import tracing  # noqa: E402
 from summersph_tpu_torch.blockstep import step_binned  # noqa: E402
 from summersph_tpu_torch.config import SimConfig  # noqa: E402
 from summersph_tpu_torch.integrate import (  # noqa: E402
-    force_eval, fused_split, prime, run_steps)
+    force_eval, prime, run_steps)
 from summersph_tpu_torch.ops import cuda_pairs  # noqa: E402
+from summersph_tpu_torch.ops.gravity import far_field_plan  # noqa: E402
 from summersph_tpu_torch.ops.sorted_grid import sort_particles  # noqa: E402
 from summersph_tpu_torch.state import STATS_FIELDS  # noqa: E402
 
@@ -178,9 +179,9 @@ def test_rcut_against_the_sort_cell(form, fits):
         return
     cfg = SimConfig(**sim)
     p = ics.program_state(pkg, cfg, ic, n, SEED, "cpu").particles
-    split = fused_split(p, cfg, True, None)
-    grid_p = sort_particles(p, cfg, min_cell=split[1])[1]
-    assert float(split[1]) == pytest.approx(float(r_cut), rel=1e-6)
+    plan = far_field_plan(p, cfg)
+    grid_p = sort_particles(p, cfg, min_cell=plan.min_cell)[1]
+    assert float(plan.split[1]) == pytest.approx(float(r_cut), rel=1e-6)
     assert float(grid_p.cell_size) == pytest.approx(
         max(float(r_cut), 2.0 * sim["fixed_h"]), rel=1e-6)
 

@@ -167,8 +167,7 @@ def test_profiled_state_is_bitwise_the_unprofiled_state():
     plain = run_steps(state, cfg, 2)
     traced, _, got = profiled(lambda: run_steps(state, cfg, 2))
     assert set(got["counters"]) == {"sph_candidates", "sph_rows",
-                                    "grav_candidates", "grav_rows",
-                                    "sink_live_slots"}
+                                    "grav_candidates", "grav_rows"}
 
     def fields(st):
         out = {"t": st.t, "dt": st.dt, "stats": st.stats,
@@ -185,23 +184,6 @@ def test_profiled_state_is_bitwise_the_unprofiled_state():
         assert (a[k] is None) == (b[k] is None), k
         if a[k] is not None:
             assert torch.equal(a[k], b[k]), k
-
-
-SINK_SPANS = ("sink_gravity", "create_sinks", "accrete", "merge_sinks")
-
-
-@pytest.mark.parametrize("case", ["disc", "collapse"])
-def test_sink_live_slots_sums_the_live_slots_of_each_sink_pass(case):
-    """sink_live_slots: the live slots each sink call saw, summed over the
-    span tree's sink spans (config 5: its one massless dummy slot of 128,
-    four calls a step; the disc: its star, two calls a step)."""
-    state, cfg = disc() if case == "disc" else collapse()
-    out, _, got = profiled(lambda: run_steps(state, cfg, 2))
-    live = int(state.sinks.n_alive)
-    assert live == int(out.sinks.n_alive) == 1
-    calls = sum(s[0] in SINK_SPANS for s in got["spans"])
-    assert calls == 2 * (4 if case == "collapse" else 2)
-    assert got["counters"]["sink_live_slots"] == calls * live
 
 
 def test_buffer_cap_counts_what_it_drops(monkeypatch):
