@@ -8,8 +8,9 @@ caught:
 
 1. print the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
-2. build the CUDA pair kernels and the sink kernels from
-   summersph_tpu_torch/csrc with nvcc (sph_pairs.cu, sinks.cu);
+2. build the CUDA pair kernels, the sink kernels and the PM mesh's
+   gradient kernel from summersph_tpu_torch/csrc with nvcc (sph_pairs.cu,
+   sinks.cu, pm_mesh.cu);
 3. on the N = 131,072 Keplerian disc (bench.py's sweep geometry): hold the
    density and force kernels against their plain PyTorch versions, time
    both with CUDA events, and time the gravity='none' main path;
@@ -249,6 +250,16 @@ caught:
    ms from the profiler, beside their bounds (`sink_bound_ms`: the pairs
    each kernel evaluates on these slots and rows); the layer with 128
    live slots under SINK_LIVE_MS a step;
+25. the PM mesh's gradient (run after phase 24): `fd4_gradient` on the
+   potential that one `pm_long_range` solve hands it (`gradient_input`:
+   config 5's ICs at grid 128, the self-gravitating disc's at grid 256,
+   each the 2n-padded cube of the fd path), equal bit for bit to its
+   plain version and to `roll_form` (the test module's), the 12-roll form
+   of the whole padded cube that it replaced; kernel,
+   plain and roll ms (CUDA events, mean of FD4_REPS calls) beside the
+   byte bound (`fd4_bound_ms`) and the kernel's ptxas registers and
+   shared memory.  Wherever `launch_counts` reads the counters, one
+   `fd4_gradient` launch a mesh solve is required;
 18. print the kernels' JSON line (with each kernel's bound: the larger of
    its input and output bytes over 3.35 TB/s and its FP32 operations on
    the pairs this run's data needs over 67 TFLOP/s; for a gated kernel
@@ -258,8 +269,10 @@ caught:
    its rim-extended columns; its launches from phases 19b and 20a, its
    times from 19a and 20b; each sink kernel twice, with config 5's slots
    and, its name ending in SINK_LIVE, with 128 live, its times and
-   bounds from phase 24, its launches from phase 11) and, last, {"ok":
-   true, "device": ...}.
+   bounds from phase 24, its launches from phase 11; `fd4_gradient` at
+   grid 128 and 256 from phase 25, the roll form's ms as `library_ms`,
+   its launches from phase 11 (grid 128) and phase 6 (grid 256))
+   and, last, {"ok": true, "device": ...}.
 
 For the pair kernels, which test every candidate of a row's windows and
 run the pair arithmetic on the survivors only, the kernel checks print the
@@ -376,8 +389,8 @@ def sink_launches():
 
 
 def launch_counts():
-    """The launches of every pair kernel and sink kernel, the force packs
-    and the mesh solves since the last `reset_counts`."""
+    """The launches of every pair kernel and sink kernel, the force packs,
+    the mesh solves and the mesh gradient since the last `reset_counts`."""
     from summersph_tpu_torch.ops import cuda_pairs, pm_gravity
 
     counts = {kernel_name(w, a): getattr(w, a)
@@ -386,6 +399,11 @@ def launch_counts():
     counts["mesh solves"] = pm_gravity.pm_long_range.solves
     counts["pencil solves"] = pm_gravity.pm_long_range.pencil_solves
     counts.update(sink_launches())
+    counts["fd4_gradient"] = pm_gravity.fd4_gradient_cuda.launches
+    require(counts["fd4_gradient"] == counts["mesh solves"],
+            f"{counts['fd4_gradient']} fd4_gradient launches for "
+            f"{counts['mesh solves']} mesh solves: every solve launches the "
+            f"gradient kernel once")
     return counts
 
 
@@ -394,9 +412,11 @@ def nonzero(counts):
 
 
 def pair_launches(counts):
-    """`counts` without the sink kernels, for the checks of a path's pair
-    kernels, packs and solves alone."""
-    return {name: k for name, k in counts.items() if name not in SINK_KERNELS}
+    """`counts` without the sink kernels and the mesh gradient (one launch
+    a solve, which `launch_counts` requires), for the checks of a path's
+    pair kernels, packs and solves alone."""
+    return {name: k for name, k in counts.items()
+            if name not in SINK_KERNELS and name != "fd4_gradient"}
 
 
 def sink_expect(cfg, steps):
@@ -443,6 +463,7 @@ def reset_counts():
     cuda_pairs.pack_force.launches = 0
     pm_gravity.pm_long_range.solves = 0
     pm_gravity.pm_long_range.pencil_solves = 0
+    pm_gravity.fd4_gradient_cuda.launches = 0
 
 
 def disc(n, device, **kw):
@@ -2998,6 +3019,118 @@ def sink_phase(n, dev):
     return results
 
 
+# ------------------------------------------------- phase 25: the mesh gradient
+FD4_REPS = 10          # calls of each gradient timed with CUDA events
+
+
+def gradient_input(p, cfg):
+    """(phi, cell, lead): what one `pm_long_range` solve on p hands to
+    `fd4_gradient`, captured from the solve itself."""
+    from summersph_tpu_torch.ops import pm_gravity as pm
+
+    seen, real = [], pm.fd4_gradient
+
+    def record(phi, cell, n, lead=0):
+        seen.append((phi, cell, lead))
+        return real(phi, cell, n, lead)
+
+    pm.fd4_gradient = record
+    try:
+        pm.pm_long_range(p, cfg)
+    finally:
+        pm.fd4_gradient = real
+    require(len(seen) == 1, f"{len(seen)} gradient calls in one solve")
+    return seen[0]
+
+
+def roll_form():
+    """The yardstick: `roll_form` of tests/test_torch_pm_mesh_kernel.py,
+    the gradient as the port computed it before `fd4_gradient` (4
+    torch.rolls a component over the whole padded cube, then the crop to
+    n^3 and the stack to [n, n, n, 3])."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_pm_mesh_kernel.py")
+    spec = importlib.util.spec_from_file_location("pm_mesh_kernel_tests",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.roll_form
+
+
+def fd4_bound_ms(n, itemsize):
+    """The least time of the gradient on an n^3 mesh: the n^3 kept cells
+    and the 12 n^2 cells of the stencil's ring read once, the 3 n^3
+    components written once, over 3.35 TB/s."""
+    return (4 * n ** 3 + 12 * n ** 2) * itemsize / PEAK_BYTES * 1e3
+
+
+def ptxas_usage(source, kernel):
+    """{mangled entry point: its ptxas 'Used ...' line} of the entry points
+    of csrc/<source>.cu whose names hold `kernel`."""
+    from summersph_tpu_torch.utils import build
+
+    usage, entry = {}, None
+    for line in build.build_log(source).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line else None
+        elif entry and "Used" in line:
+            usage[entry] = line.split(":", 1)[1].strip()
+            entry = None
+    return usage
+
+
+def fd4_phase(n, dev):
+    """Phase 25: `fd4_gradient` on the potential that one solve of config
+    5's grid-128 mesh and of the self-gravitating disc's grid-256 mesh at
+    N = n hands it.  Returns {grid: (err, ms, plain_ms, bound_ms,
+    bound_by, roll_ms)}."""
+    import torch
+    from summersph_tpu_torch.ops import pm_gravity as pm
+
+    for entry, used in ptxas_usage("pm_mesh", "fd4_gradient").items():
+        print(f"[fd4_gradient] ptxas {entry}: {used}", flush=True)
+    roll_gradient, results = roll_form(), {}
+    for what, (state, cfg) in (
+            ("config 5 grid 128", config5(n, dev)),
+            ("disc_sg grid 256", disc(n, dev, gravity="pm", grav_grid=256))):
+        g = cfg.grav_grid
+        label = f"N={n} {what}"
+        phi, cell, lead = gradient_input(state.particles, cfg)
+        require(lead == 0 and phi.shape == (2 * g,) * 3,
+                f"{label}: the solve's gradient took a {tuple(phi.shape)} "
+                f"cube at lead {lead}, not the fd path's padded cube")
+        reset_counts()
+        got = pm.fd4_gradient(phi, cell, g)
+        again = pm.fd4_gradient(phi, cell, g)
+        torch.cuda.synchronize()
+        require(pm.fd4_gradient_cuda.launches == 2,
+                f"{label}: {pm.fd4_gradient_cuda.launches} kernel launches "
+                f"for 2 calls")
+        require(torch.equal(got, again), f"{label}: two launches differ")
+        require(torch.equal(got, pm.fd4_gradient_plain(phi, cell, g)),
+                f"{label}: fd4_gradient differs from its plain version")
+        require(torch.equal(got, roll_gradient(phi, cell, g)),
+                f"{label}: fd4_gradient differs from the roll form")
+        ms = cuda_ms(lambda: pm.fd4_gradient(phi, cell, g), FD4_REPS)
+        plain_ms = cuda_ms(lambda: pm.fd4_gradient_plain(phi, cell, g),
+                           FD4_REPS)
+        roll_ms = cuda_ms(lambda: roll_gradient(phi, cell, g), FD4_REPS)
+        bound = fd4_bound_ms(g, phi.element_size())
+        print(f"[{label}] fd4_gradient: {ms:.4f} ms a call, bound "
+              f"{bound:.4f} ms (bytes, {100.0 * bound / ms:.1f}% of it); "
+              f"plain {plain_ms:.3f} ms, roll form {roll_ms:.3f} ms "
+              f"({roll_ms / ms:.1f}x the kernel); equal to both bit for "
+              f"bit, two launches equal; max |F| "
+              f"{float(got.abs().max()):.6e}", flush=True)
+        results[g] = (0.0, ms, plain_ms, bound, "bytes", roll_ms)
+        del phi, got, again
+        reset_counts()
+    return results
+
+
 def main():
     import torch
 
@@ -3032,7 +3165,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 2: build the kernels from csrc/ (one nvcc a source)
-    for source in ("sph_pairs", "sinks"):
+    for source in ("sph_pairs", "sinks", "pm_mesh"):
         lib = build.build(source)
         print(f"built {lib.name}", flush=True)
         for line in build.build_log(source).splitlines():
@@ -3311,6 +3444,10 @@ def main():
     sink_results = sink_phase(n, dev)
     phase_done("24 (N=1048576, the sink layers)")
 
+    # -- phase 25: the PM mesh's gradient
+    fd4_results = fd4_phase(n, dev)
+    phase_done("25 (N=1048576, the mesh gradient)")
+
     # -- phase 18: results
     launches = {"density_fixed_h": none_launches["density_fixed_h"],
                 "pack_force": c5_launches["pack_force"],
@@ -3339,7 +3476,11 @@ def main():
             ("force_var_h_rows" + KEY_ROWS, c5_key_launches)):
         launches[name] = counted[name]
         require(counted[name] > 0, f"{name} was never launched on its path")
-    from summersph_tpu_torch.ops import cuda_sinks
+    # the mesh gradient's launches on a main path at each grid: config 5's
+    # (grid 128, phase 11) and the fused TreePM disc's (grid 256, phase 6)
+    fd4_launches = {128: c5_launches["fd4_gradient"],
+                    256: fused_launches["fd4_gradient"]}
+    from summersph_tpu_torch.ops import cuda_sinks, pm_gravity
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": cuda_pairs.SOURCE,
          "replaces": replaces, "launches": launches[name],
@@ -3353,7 +3494,15 @@ def main():
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         for name, (err, ms, plain_ms, bound_ms, bound_by)
-        in sink_results.items()]}), flush=True)
+        in sink_results.items()] + [
+        {"name": f"fd4_gradient (grid {g})", "route": "cuda",
+         "source": pm_gravity.SOURCE,
+         "replaces": "none (summersph_tpu/ops/pm_gravity.py _fd4_gradient"
+                     " is jnp)", "launches": fd4_launches[g],
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": roll_ms}
+        for g, (err, ms, plain_ms, bound_ms, bound_by, roll_ms)
+        in fd4_results.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ the method:
   Poisson solve on the 2x zero-padded grid with
   `torch.fft.rfftn`/`irfftn` and the scale-free Green's table
   (`green_kernel_k`), the force by 4th-order finite differences
-  (`grav_gradient='fd'`) or the spectral gradient, and CIC interpolation
-  back to the particles.
+  (`grav_gradient='fd'`: `fd4_gradient` on the n^3 kept cells alone, on
+  the card one launch of the `csrc/pm_mesh.cu` kernel) or the spectral
+  gradient, and CIC interpolation back to the particles.
 * F_short (`pm_short_range`): the pair sum of
   g_short(r) = f_spline(r/h_i) - S(r) over 0 < r < r_cut on a slim sort
   with cells r_cut wide, through the `grav_short` CUDA kernel
@@ -55,6 +56,7 @@ accepted, and the overflow count is 0.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional
@@ -67,8 +69,9 @@ from ..parallel.comm import (all_gather_tiled, all_to_all_tiled,
 from ..parallel.decomp import KX, KY, exchange_rim, rim_short_count
 from ..state import Particles
 from ..tracing import active, count, span, traced
+from ..utils import build
 from ..utils.units import G, PI
-from .cuda_pairs import grav_short_sums
+from .cuda_pairs import _launch, _on_cpu, grav_short_sums
 from .kernels import grav_softening
 from .sorted_grid import (LANES, SENTINEL_KEY, SortedGrid, _cell_key,
                           _pad_to, group_windows, group_worklist)
@@ -214,17 +217,90 @@ def _phi_k(rho, cfg: SimConfig, cell, npad: int):
     return rho_k * grav_tables(cfg, rho.dtype, rho.device) * (cell * cell)
 
 
-def _fd4_gradient(phi, cell):
-    """4th-order central-difference force F = -grad phi, axis by axis.
-    The wrap-around reads at the crop edges hit the padded half of the
-    circulant potential, which holds correct open-space values."""
-    comps = []
-    for ax in range(3):
-        d = (-torch.roll(phi, -2, ax) + 8.0 * torch.roll(phi, -1, ax)
-             - 8.0 * torch.roll(phi, 1, ax) + torch.roll(phi, 2, ax)) \
-            / (12.0 * cell)
-        comps.append(-d)
-    return comps
+def fd4_gradient(phi, cell, n: int, lead: int = 0):
+    """F = -grad phi by 4th-order central differences on the n^3 cells
+    the mesh keeps, as the [n, n, n, 3] field the CIC gather reads.  On
+    each axis output j reads phi[(j + lead + t) mod L], t = -2, -1, 1, 2,
+    of the cube of side L, and phi[j + lead] on the other two: the fd
+    path's zero-padded cube (L = 2n, lead 0), whose reads at j = 0, 1
+    wrap to the padded half of the circulant potential, which holds
+    correct open-space values, or the pencil solve's ghost-ringed cube
+    (L = n + 4, lead 2).  `cell` (a 0-d tensor or a number) is taken in
+    phi's dtype.  A CPU tensor takes `fd4_gradient_plain`, a CUDA tensor
+    the `csrc/pm_mesh.cu` kernel (`fd4_gradient_cuda`), with no fallback;
+    the two agree bit for bit."""
+    cell = torch.as_tensor(cell, dtype=phi.dtype, device=phi.device)
+    if _on_cpu(phi):
+        return fd4_gradient_plain(phi, cell, n, lead)
+    return fd4_gradient_cuda(phi, cell, n, lead)
+
+
+def fd4_gradient_plain(phi, cell, n: int, lead: int = 0):
+    """`fd4_gradient` in PyTorch: each of the four reads an index_select
+    of the kept cells, then -((((-p2 + 8 p1) - 8 m1) + m2) / (12 cell)),
+    the arithmetic and order of the JAX package's `_fd4_gradient`."""
+    side = phi.shape[0]
+    c12 = 12.0 * cell
+    rows = torch.arange(n, device=phi.device)
+
+    def grad(ax):
+        kept = phi
+        for a in range(3):
+            if a != ax:
+                kept = kept.narrow(a, lead, n)
+
+        def at(t):
+            return kept.index_select(ax, (rows + (lead + t)) % side)
+
+        d = (-at(2) + 8.0 * at(1) - 8.0 * at(-1) + at(-2)) / c12
+        return -d
+
+    return torch.stack([grad(ax) for ax in range(3)], dim=-1)
+
+
+SOURCE = "summersph_tpu_torch/csrc/pm_mesh.cu"
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("pm_mesh")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fd4_gradient.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.fd4_gradient.restype = i32
+    return lib
+
+
+def fd4_gradient_cuda(phi, cell, n: int, lead: int = 0):
+    """`fd4_gradient` on the card: one launch of the `csrc/pm_mesh.cu`
+    kernel, counted in `fd4_gradient_cuda.launches`.  phi a contiguous
+    float32 or float64 cube, `cell` a 0-d tensor of its dtype on its
+    device, read there."""
+    side = phi.shape[0]
+    if phi.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fd4_gradient: the kernel takes float32 or "
+                        f"float64, got {phi.dtype}")
+    if (not phi.is_cuda or phi.shape != (side,) * 3
+            or not phi.is_contiguous()):
+        raise ValueError(f"fd4_gradient: phi must be a contiguous CUDA "
+                         f"cube, got {tuple(phi.shape)} on {phi.device} "
+                         f"(contiguous={phi.is_contiguous()})")
+    if (cell.dtype != phi.dtype or cell.device != phi.device
+            or cell.numel() != 1):
+        raise ValueError(f"fd4_gradient: cell must be one {phi.dtype} "
+                         f"value on {phi.device}, got {cell.dtype} "
+                         f"{tuple(cell.shape)} on {cell.device}")
+    if n < 1 or lead < 0 or lead + n > side:
+        raise ValueError(f"fd4_gradient: the kept cells [{lead}, "
+                         f"{lead + n}) must lie in the cube's side {side}")
+    out = torch.empty((n, n, n, 3), dtype=phi.dtype, device=phi.device)
+    _launch(_library().fd4_gradient, phi.data_ptr(), cell.data_ptr(),
+            out.data_ptr(), side, lead, n, int(phi.dtype == torch.float64),
+            torch.cuda.current_stream(phi.device).cuda_stream)
+    fd4_gradient_cuda.launches += 1
+    return out
+
+
+fd4_gradient_cuda.launches = 0
 
 
 def pm_geometry(p: Particles, cfg: SimConfig, axis_name=None,
@@ -303,22 +379,6 @@ def poisson_pencil(rho_local: torch.Tensor, kern_k: torch.Tensor, scale,
     return all_gather_tiled(phi.contiguous(), mesh)[:m]
 
 
-def _fd4_gradient_pruned(phi_m, cell, n: int):
-    """F = -grad phi by 4th-order central differences on the ghost-ringed
-    m-cube of `poisson_pencil`: output j reads phi_m[j .. j + 4] on its
-    axis.  Returns (gx, gy, gz), each [n, n, n]."""
-    inv12c = 1.0 / (12.0 * cell)
-
-    def d(axis):
-        def sl(lo):
-            idx = [slice(2, 2 + n)] * 3
-            idx[axis] = slice(lo, lo + n)
-            return phi_m[tuple(idx)]
-        return (-sl(4) + 8.0 * sl(3) - 8.0 * sl(1) + sl(0)) * inv12c
-
-    return [-d(0), -d(1), -d(2)]
-
-
 @traced("pm_long_range")
 def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None,
                   decomp: bool = False):
@@ -336,10 +396,10 @@ def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None,
     Its four child spans cover the whole solve: `pm_deposit` (the box, the
     CIC deposit, the sum over the ranks), `pm_poisson` (the zero pad, the
     forward transform, the Green's product and, with the fd gradient, the
-    inverse; the pencil solve whole), `pm_gradient` (the fd gradient and
-    the crop; with the spectral gradient also its three inverse
-    transforms) and `pm_gather` (the CIC interpolation to the
-    particles)."""
+    inverse; the pencil solve whole), `pm_gradient` (`fd4_gradient` on the
+    kept cells, one kernel launch on the card; with the spectral gradient
+    its three inverse transforms and the crop) and `pm_gather` (the CIC
+    interpolation to the particles)."""
     if cfg.grav_fft == "matmul" and cfg.grav_gradient != "fd":
         raise ValueError("grav_fft='matmul' implements the 'fd' gradient "
                          "only (set grav_gradient='fd' or grav_fft='xla')")
@@ -355,22 +415,19 @@ def pm_long_range(p: Particles, cfg: SimConfig, rows=None, axis_name=None,
         rho = _cic_deposit(p_dep.pos, m, origin, cell, n) / cell ** 3
         if axis_name is not None and not pencil:
             rho = psum(rho, axis_name)
-    if pencil:
+    if pencil or cfg.grav_gradient == "fd":
         with span("pm_poisson"):
-            phi_m = poisson_pencil(rho, grav_tables(cfg, dtype, dev),
-                                   cell * cell, axis_name)
+            if pencil:
+                phi = poisson_pencil(rho, grav_tables(cfg, dtype, dev),
+                                     cell * cell, axis_name)
+            else:
+                phi = torch.fft.irfftn(_phi_k(rho, cfg, cell, npad),
+                                       s=(npad,) * 3)
         with span("pm_gradient"):
-            force = torch.stack(_fd4_gradient_pruned(phi_m, cell, n), dim=-1)
-        pm_long_range.pencil_solves += 1
-    elif cfg.grav_gradient == "fd":
-        with span("pm_poisson"):
-            phi = torch.fft.irfftn(_phi_k(rho, cfg, cell, npad),
-                                   s=(npad,) * 3)
-        with span("pm_gradient"):
-            grads = _fd4_gradient(phi, cell)
-            del phi
-            force = torch.stack([g[:n, :n, :n] for g in grads], dim=-1)
-            del grads
+            force = fd4_gradient(phi, cell, n, lead=2 if pencil else 0)
+        del phi
+        if pencil:
+            pm_long_range.pencil_solves += 1
     else:  # exact spectral gradient F(k) = -i k phi(k)
         with span("pm_poisson"):
             phi_k = _phi_k(rho, cfg, cell, npad)
@@ -588,4 +645,5 @@ def recompute_far_field(pm_phase: Optional[int], r_s_held,
 __all__ = ["PM_MODES", "green_kernel_k", "grav_tables", "pm_geometry",
            "pm_long_range", "gravity_sort", "pm_short_range",
            "gas_gravity_pm", "gas_gravity_pm_decomp", "poisson_pencil",
-           "pencil_tiles", "recompute_far_field", "erf_approx"]
+           "pencil_tiles", "recompute_far_field", "erf_approx",
+           "fd4_gradient", "fd4_gradient_plain", "fd4_gradient_cuda"]

@@ -41,7 +41,8 @@ records.
 
 The system's other counters stay where they are, read by the tests and
 the benchmark: the kernel launch counts (`ops.cuda_pairs.launch_counters`,
-`pack_force.launches`, `ops.cuda_sinks.launch_counters`), the mesh solves
+`pack_force.launches`, `ops.cuda_sinks.launch_counters`,
+`ops.pm_gravity.fd4_gradient_cuda.launches`), the mesh solves
 (`pm_long_range.solves`, `pencil_solves`) and the device health counters
 (`state.stats`, `state.STATS_FIELDS`).
 """

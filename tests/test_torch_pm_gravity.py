@@ -22,6 +22,7 @@ from summersph_tpu_torch.ops import cuda_pairs, gravity, pm_gravity
 from summersph_tpu_torch.ops.sorted_grid import sort_particles
 
 from test_torch_config_state import port_particles
+from test_torch_pm_mesh_kernel import ghost_cube, padded_potential, roll_form
 
 
 def _t(a):
@@ -114,10 +115,73 @@ def test_mesh_operators_match_jax(name):
         theirs = jpm._cic_gather(jnp.asarray(field), jp.pos, jorigin, jcell,
                                  n)[live]
     else:
+        # the port's gradient keeps the n^3 cells; the JAX package's is
+        # cropped to them
         phi = rng.standard_normal((2 * n, 2 * n, 2 * n))
-        ours = torch.stack(pm_gravity._fd4_gradient(_t(phi), 0.7))
-        theirs = jnp.stack(jpm._fd4_gradient(jnp.asarray(phi), 0.7))
+        ours = pm_gravity.fd4_gradient(_t(phi), 0.7, n)
+        theirs = jnp.stack([g[:n, :n, :n] for g in
+                            jpm._fd4_gradient(jnp.asarray(phi), 0.7)],
+                           axis=-1)
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-12)
+
+
+def _ulps(a, b):
+    """|a - b| in units in the last place, a and b of one sign."""
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return int((a.view(ints) - b.view(ints)).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [16, 17])
+def test_fd4_gradient_plain_equals_the_roll_form(n, dtype):
+    """The n^3 gradient equals the 12-roll gradient of the whole padded
+    cube cropped to n^3, bit for bit, wrap planes j = 0, 1 (which read
+    planes 2n-2, 2n-1 of the padded half) and n-2, n-1 included."""
+    phi, cell = padded_potential(n, dtype, "cpu")
+    ours = pm_gravity.fd4_gradient(phi, cell, n)
+    assert ours.shape == (n, n, n, 3)
+    assert torch.equal(ours, pm_gravity.fd4_gradient_plain(phi, cell, n))
+    assert torch.equal(ours, roll_form(phi, cell, n))
+    # the padded half is read: planes 2n-2 and 2n-1 move j = 0 and 1
+    bumped = phi.clone()
+    bumped[2 * n - 2:] += 1.0
+    moved = pm_gravity.fd4_gradient(bumped, cell, n) != ours
+    assert moved[:2, ..., 0].all() and not moved[2:, ..., 0].any()
+    assert torch.equal(pm_gravity.fd4_gradient(bumped, cell, n),
+                       roll_form(bumped, cell, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fd4_gradient_on_the_ghost_ringed_cube(dtype):
+    """Lead 2 on the pencil solve's ghost-ringed cube equals lead 0 on the
+    padded cube it was cut from, bit for bit; the pencil path's former
+    scaling by a multiplied 1 / (12 cell) lies within 1 ulp of it."""
+    n = 17
+    phi, cell = padded_potential(n, dtype, "cpu", seed=1)
+    phi_m = ghost_cube(phi, n)
+    ours = pm_gravity.fd4_gradient(phi_m, cell, n, lead=2)
+    assert torch.equal(ours, pm_gravity.fd4_gradient(phi, cell, n))
+    inv12c = 1.0 / (12.0 * cell)
+
+    def multiplied(axis):
+        def sl(lo):
+            idx = [slice(2, 2 + n)] * 3
+            idx[axis] = slice(lo, lo + n)
+            return phi_m[tuple(idx)]
+        return -((-sl(4) + 8.0 * sl(3) - 8.0 * sl(1) + sl(0)) * inv12c)
+
+    former = torch.stack([multiplied(ax) for ax in range(3)], dim=-1)
+    assert _ulps(ours, former) <= 1
+
+
+def test_fd4_gradient_counts_no_launch_on_the_cpu():
+    phi, cell = padded_potential(16, torch.float32, "cpu")
+    jp = _cloud(n=300, capacity=320, dtype=jnp.float32)
+    before = pm_gravity.fd4_gradient_cuda.launches
+    pm_gravity.fd4_gradient(phi, cell, 16)
+    pm_gravity.pm_long_range(port_particles(jp),
+                             SimConfig(gravity="pm", grav_grid=16))
+    assert pm_gravity.fd4_gradient_cuda.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
